@@ -3,17 +3,24 @@
 A port of ``bts_tpu`` (JAX on a TPU) that lives beside it; ``bts_tpu`` stays
 the reference each module is tested against.  The layout mirrors it:
 
+  bts_tpu/config.py                     -> bts_tpu_torch/config.py (+ --device)
   bts_tpu/models/{bts,layers,encoders}  -> bts_tpu_torch/models/...  (nn.Module, NCHW)
   bts_tpu/ops/lpg.py, lpg_pallas.py     -> bts_tpu_torch/ops/lpg.py, lpg_cuda.py
-                                           + csrc/lpg_fused.cu (sm_90a kernel)
-  bts_tpu/data/augment.py (eval part)   -> bts_tpu_torch/data/augment.py
-  bts_tpu/utils/torch_converter.py      -> bts_tpu_torch/utils/weights.py
-  bts_tpu/cli/bts_test.py               -> bts_tpu_torch/cli/bts_test.py
+                                           + csrc/lpg_fused.cu (sm_90a kernels,
+                                           forward and backward)
+  bts_tpu/ops/silog.py                  -> bts_tpu_torch/ops/silog.py
+  bts_tpu/data/{augment,dataloader,crops,depth_io}.py
+                                        -> bts_tpu_torch/data/...
+  bts_tpu/training/{optimizer,trainer}  -> bts_tpu_torch/training/...
+  bts_tpu/utils/{torch_converter,checkpoint,summary,preemption}
+                                        -> bts_tpu_torch/utils/... (+ weights.py)
+  bts_tpu/cli/{bts_test,bts_main}.py    -> bts_tpu_torch/cli/...
 
-The JAX-free host modules are reused, not copied: the config system, the
-test-mode data loader and the depth PNG I/O.  Nothing here imports JAX.
+The port keeps its own copies of the JAX package's jax-free host modules
+(config, weight-name mapping, crops, depth PNG I/O) and imports nothing of
+``bts_tpu`` and nothing of JAX.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-from bts_tpu.config import Config, parse_args  # noqa: F401
+from bts_tpu_torch.config import Config, parse_args  # noqa: F401

@@ -10,8 +10,10 @@ PNGs (KITTI x256 / NYU x1000) into ``--out_path`` (default
 
 ``--checkpoint_path`` names a torch ``state_dict`` file, as
 ``utils/weights.py::state_dict_from_jax`` and ``torch.save`` write it.
-Without one, the seeded initialisation is used.  The loader and PNG I/O come
-from ``bts_tpu.data`` (Pillow), imported only by :func:`main`.
+Without one, the seeded initialisation is used.  :func:`main` runs on
+``--device`` (default ``cuda``; it raises when there is no card, and
+``--device cpu`` runs on the CPU).  The loader and PNG I/O
+(``bts_tpu_torch.data``, Pillow) are imported only by :func:`main`.
 
     python -m bts_tpu_torch.cli.bts_test @arguments/arguments_test_eigen.txt \\
         --checkpoint_path state_dict.pt
@@ -26,7 +28,7 @@ from typing import Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
-from bts_tpu.config import adopt_sidecar_geometry, parse_args, warn_b4_anomaly
+from bts_tpu_torch.config import adopt_sidecar_geometry, parse_args, require_device
 from bts_tpu_torch.data.augment import eval_preprocess
 from bts_tpu_torch.models.bts import create_model, set_float32_precision
 from bts_tpu_torch.utils.weights import load_state_dict
@@ -69,13 +71,12 @@ def save_cmap_png(path: str, depth: np.ndarray, max_depth: float) -> None:
 
 
 def main(argv=None):
-    from bts_tpu.data.dataloader import BtsDataLoader
-    from bts_tpu.data.depth_io import write_depth_png
+    from bts_tpu_torch.data.dataloader import BtsDataLoader
+    from bts_tpu_torch.data.depth_io import write_depth_png
 
     cfg = parse_args(argv, mode="test")
     cfg = adopt_sidecar_geometry(cfg)  # trained-run stride-2 geometry, if recorded
-    warn_b4_anomaly(cfg)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = require_device(cfg)
     print(f"[bts_tpu_torch] device {device}")
     model = create_model(cfg, device)
     if cfg.checkpoint_path:

@@ -1,0 +1,298 @@
+"""Host-side data loading: split files -> decoded, geometry-fixed batches.
+
+Counterpart of ``bts_tpu/data/dataloader.py`` (the PNG-tree path).  The host
+only decodes PNGs and applies the fixed-geometry crops; the stochastic
+augmentation runs on the card (``data/augment.py``).  Split files use the
+reference format, one sample per line,
+
+    <image_path> <depth_path> [<focal>]
+
+paths relative to ``data_path`` / ``gt_path`` (absolute paths also work).
+A missing depth is spelled ``None`` in test-mode files.
+
+Modes: 'train' (seeded per-epoch shuffle, repeat, uint8 batches for the
+augmentation) and 'test' (images only); online eval is not ported yet.
+Not ported yet (ROADMAP.md): ArrayRecord shards and the native C++ decoder;
+``--use_native_loader auto`` takes the PIL path here.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Iterator, List, Optional, Tuple
+
+import numpy as np
+from PIL import Image
+
+from bts_tpu_torch.data.crops import kb_crop, nyu_border_crop
+from bts_tpu_torch.data.depth_io import depth_from_png
+
+RECORD_SUFFIXES = (".array_record", ".arrayrecord")
+
+
+@dataclass
+class Sample:
+    image_path: str
+    depth_path: Optional[str]
+    focal: float
+
+
+def parse_filenames_file(path: str, data_path: str = "", gt_path: str = "", use_right: bool = False) -> List[Sample]:
+    """Parse a reference-format split file into Samples.
+
+    ``use_right`` swaps image_02 -> image_03 (right KITTI camera).  A line
+    whose first character is ``#`` is skipped (the in-repo stub split files
+    carry a provenance banner); no reference split line starts with ``#``.
+    """
+    samples = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("#"):
+                continue
+            parts = line.split()
+            if not parts:
+                continue
+            img = parts[0]
+            depth = parts[1] if len(parts) > 1 and parts[1] != "None" else None
+            focal = float(parts[2]) if len(parts) > 2 else 0.0
+            if use_right:
+                img = img.replace("image_02", "image_03")
+                if depth:
+                    depth = depth.replace("image_02", "image_03")
+            samples.append(
+                Sample(
+                    image_path=os.path.join(data_path, img) if data_path else img,
+                    depth_path=(os.path.join(gt_path, depth) if gt_path else depth) if depth else None,
+                    focal=focal,
+                )
+            )
+    return samples
+
+
+def apply_fixed_geometry(
+    image: np.ndarray,
+    depth: Optional[np.ndarray],
+    dataset: str,
+    do_kb_crop: bool,
+    border_crop: bool,
+) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """The fixed-geometry crops.  ``border_crop`` (NYU) is train-only in the
+    reference: test/eval forward the full 480x640 frame."""
+    if dataset == "nyu":
+        if border_crop:
+            image = nyu_border_crop(image)
+            if depth is not None:
+                depth = nyu_border_crop(depth)
+    elif do_kb_crop:
+        image = kb_crop(image)
+        if depth is not None:
+            depth = kb_crop(depth)
+    return image, depth
+
+
+def load_sample(
+    sample: Sample,
+    dataset: str,
+    do_kb_crop: bool,
+    need_depth: bool = True,
+    border_crop: bool = True,
+) -> Tuple[np.ndarray, Optional[np.ndarray], float]:
+    """Decode one sample and apply the fixed-geometry crops.
+
+    Returns (uint8 HWC image, float32 HW depth-in-meters or None, focal).
+    """
+    image = np.asarray(Image.open(sample.image_path).convert("RGB"), dtype=np.uint8)
+    depth = None
+    if need_depth and sample.depth_path is not None:
+        depth = depth_from_png(np.array(Image.open(sample.depth_path)), dataset)
+    image, depth = apply_fixed_geometry(image, depth, dataset, do_kb_crop, border_crop)
+    return image, depth, sample.focal
+
+
+def _rank_and_world() -> Tuple[int, int]:
+    """This process's rank and the world size from ``torch.distributed``
+    when it is initialised, else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class BtsDataLoader:
+    """Batch iterator over a split file (reference ``BtsDataloader``).
+
+    Yields dict batches of host numpy arrays:
+        image: (B, H, W, 3) uint8
+        depth: (B, H, W) float32 meters  (absent in test mode)
+        focal: (B,) float32
+    """
+
+    def __init__(self, cfg, mode: str):
+        self.cfg = cfg
+        self.mode = mode
+        if mode not in ("train", "test"):
+            raise ValueError(f"mode must be 'train' or 'test', got {mode!r}")
+        fn, dp, gp = cfg.filenames_file, cfg.data_path, cfg.gt_path
+        if fn and fn.rstrip("*?[]").endswith(RECORD_SUFFIXES):
+            raise NotImplementedError(
+                f"ArrayRecord input ({fn}) is not ported to bts_tpu_torch yet "
+                "(ROADMAP.md, 'records/native loader'); use a PNG-tree split file"
+            )
+        if cfg.use_native_loader == "always":
+            raise NotImplementedError(
+                "--use_native_loader always: the native C++ loader is not ported to "
+                "bts_tpu_torch yet (ROADMAP.md, 'records/native loader'); auto/never use PIL"
+            )
+        self.use_right = bool(cfg.use_right) and mode == "train"
+        self.samples = parse_filenames_file(fn, dp, gp)
+        self.n_base = len(self.samples)
+        # reference --use_right: the right camera is chosen per sample per
+        # epoch; left in [0, n), right in [n, 2n)
+        if self.use_right:
+            self.samples = self.samples + parse_filenames_file(fn, dp, gp, use_right=True)
+        self.batch_size = cfg.batch_size
+        if mode == "train" and self.n_base < self.batch_size:
+            raise ValueError(
+                f"{self.n_base} train samples < batch_size {self.batch_size}: "
+                "every epoch would be empty (train mode drops the remainder)"
+            )
+        # data parallel: every rank shuffles with the same seed (one global
+        # order) and loads its contiguous slice of each global batch
+        self.process_index, self.process_count = _rank_and_world() if mode == "train" else (0, 1)
+        if self.batch_size % self.process_count != 0:
+            raise ValueError(
+                f"batch_size {self.batch_size} not divisible by {self.process_count} processes"
+            )
+        self.local_batch = self.batch_size // self.process_count
+
+    def __len__(self):
+        return self.n_base
+
+    def steps_per_epoch(self) -> int:
+        return max(1, self.n_base // self.batch_size)
+
+    def _load_index(self, i: int):
+        need_depth = self.mode != "test"
+        img, depth, focal = load_sample(
+            self.samples[i],
+            self.cfg.dataset,
+            self.cfg.do_kb_crop,
+            need_depth,
+            border_crop=self.mode == "train",
+        )
+        if depth is None and need_depth:
+            depth = np.zeros(img.shape[:2], np.float32)
+        return img, depth, focal
+
+    def _epoch_order(self, epoch: int = 0) -> List[int]:
+        """Sample order for one epoch, a pure function of (seed, epoch), so a
+        resumed run recomputes epoch e's order without replaying the others."""
+        idx = np.arange(self.n_base)
+        if self.mode == "train":
+            rng = np.random.default_rng([self.cfg.seed, epoch])
+            rng.shuffle(idx)
+            if self.use_right:
+                idx = idx + self.n_base * rng.integers(0, 2, size=idx.shape)
+        return list(idx)
+
+    def batches(self, num_epochs: Optional[int] = None, start_step: int = 0) -> Iterator[dict]:
+        """Yield batches; infinite when num_epochs is None and mode=='train'.
+
+        ``start_step`` (train mode): resume the global-step sequence exactly
+        there — same epoch order, same position within the epoch.
+        """
+        spe = self.steps_per_epoch()
+        epoch = start_step // spe if self.mode == "train" else 0
+        skip = start_step % spe if self.mode == "train" else 0
+        done = 0
+        pool = None
+        if self.cfg.dataloader_workers > 1 and self.local_batch > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(self.cfg.dataloader_workers)
+        try:
+            while num_epochs is None or done < num_epochs:
+                order = self._epoch_order(epoch)
+                # train drops the remainder; test pads it with the last
+                # sample (consumers write only the first len(self) results)
+                rem = len(order) % self.batch_size
+                if rem and self.mode == "train":
+                    order = order[: len(order) - rem]
+                elif rem:
+                    order = order + [order[-1]] * (self.batch_size - rem)
+                for start in range(skip * self.batch_size, len(order), self.batch_size):
+                    chunk = order[start : start + self.batch_size]
+                    if self.process_count > 1:
+                        lo = self.process_index * self.local_batch
+                        chunk = chunk[lo : lo + self.local_batch]
+                    if pool is not None:
+                        loaded = list(pool.map(self._load_index, chunk))
+                    else:
+                        loaded = [self._load_index(i) for i in chunk]
+                    batch = {
+                        "image": np.stack([x[0] for x in loaded]),
+                        "focal": np.array([x[2] for x in loaded], np.float32),
+                    }
+                    if self.mode != "test":
+                        batch["depth"] = np.stack([x[1] for x in loaded])
+                    yield batch
+                skip = 0
+                epoch += 1
+                done += 1
+                if self.mode != "train":
+                    break
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=False)
+
+    def prefetched(
+        self, num_epochs: Optional[int] = None, depth: int = 2, start_step: int = 0
+    ) -> Iterator[dict]:
+        """Batches decoded by a background thread ahead of the consumer.
+
+        Closing (or abandoning) this generator stops the worker and closes
+        the underlying :meth:`batches` generator, so its decode pool shuts
+        down when an infinite train stream is dropped mid-epoch.  A loader
+        failure is re-raised on the consumer side.
+        """
+        q: "queue.Queue" = queue.Queue(maxsize=depth)
+        sentinel = object()
+        stop = threading.Event()
+
+        def guarded_put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            gen = self.batches(num_epochs, start_step)
+            try:
+                for b in gen:
+                    if not guarded_put(b):
+                        return
+                guarded_put(sentinel)
+            except BaseException as e:  # noqa: BLE001 - re-raised on the consumer side
+                guarded_put(e)
+            finally:
+                gen.close()
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()

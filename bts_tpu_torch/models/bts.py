@@ -18,7 +18,9 @@ Forward (as the JAX package):
 
 Returns (depth_8x8_scaled, depth_4x4_scaled, depth_2x2_scaled, depth_1x1,
 final_depth), each (B, 1, H, W) f32.  BN, both sigmoids and the LPG maths
-run in f32; convs in the compute dtype, from f32 weights.
+run in f32; convs in the compute dtype, from f32 weights.  ``model.train()``
+is the JAX model's ``train=True``: BatchNorm normalises by batch statistics
+and updates its running ones; nothing else changes.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bts_tpu.config import resolved_encoder_pad
+from bts_tpu_torch.config import resolved_encoder_pad
 from bts_tpu_torch.models.encoders import build_encoder
 from bts_tpu_torch.models.layers import (
     AtrousConv,
@@ -190,9 +192,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def create_model(cfg, device="cpu") -> BtsModel:
-    """Build a BtsModel from a ``bts_tpu.config.Config``, seeded from
-    ``cfg.seed``, in eval mode on ``device``.  The initialisation runs on the
-    CPU, so a seed gives the same weights on every device."""
+    """Build a BtsModel from a ``bts_tpu_torch.config.Config``, seeded from
+    ``cfg.seed``, in eval mode on ``device`` (``Trainer`` switches it to
+    train mode).  The initialisation runs on the CPU, so a seed gives the
+    same weights on every device."""
     if cfg.fused_tail == "always":
         raise NotImplementedError(
             "--fused_tail always (the fused decoder tail, K5/K6) is not ported to "
@@ -203,7 +206,8 @@ def create_model(cfg, device="cpu") -> BtsModel:
             "--spatial_shards is not ported to bts_tpu_torch yet (ROADMAP.md, 'Modules to port')"
         )
     dtype = DTYPES[cfg.compute_dtype]
-    encoder = build_encoder(cfg.encoder, dtype=dtype, pad_style=resolved_encoder_pad(cfg))
+    encoder = build_encoder(cfg.encoder, dtype=dtype, pad_style=resolved_encoder_pad(cfg),
+                            remat=cfg.remat, remat_policy=cfg.remat_policy)
     decoder = BtsDecoder(
         encoder.channels,
         max_depth=cfg.max_depth,

@@ -42,9 +42,25 @@ def _spec(name: str) -> dict:
     return ENCODERS[name]
 
 
-def build_encoder(name: str, dtype=torch.float32, pad_style: str = "same"):
+def build_encoder(name: str, dtype=torch.float32, pad_style: str = "same",
+                  remat: bool = False, remat_policy: str = "layer"):
     spec = _spec(name)
-    return spec["cls"](dtype=dtype, pad_style=pad_style, **spec["kwargs"])
+    return spec["cls"](dtype=dtype, pad_style=pad_style, remat=remat, remat_policy=remat_policy,
+                       **spec["kwargs"])
+
+
+def freeze_prefixes(name: str, num_blocks: int) -> Tuple[str, ...]:
+    """Encoder submodule names frozen by --fix_first_conv_block(s), in
+    torchvision names: the stem plus the first one (``_block``) or two
+    (``_blocks``) dense blocks with the transition after each; the JAX
+    package's ``freeze_prefixes`` in flax names."""
+    cfg = _spec(name)["kwargs"]["block_config"]
+    names = ["features.conv0", "features.norm0"]
+    for stage in range(min(num_blocks, len(cfg))):
+        names.append(f"features.denseblock{stage + 1}")
+        if stage < len(cfg) - 1:
+            names.append(f"features.transition{stage + 1}")
+    return tuple(names)
 
 
 def encoder_channels(name: str) -> Tuple[int, ...]:

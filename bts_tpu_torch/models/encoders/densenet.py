@@ -10,17 +10,41 @@ Module names are torchvision's (``features.conv0``,
 
 Feature taps for the BTS decoder (strides 2/4/8/16/32): relu0, pool0,
 transition1, transition2, norm5 (pre-ReLU; the decoder applies the ReLU).
+
+``remat`` (``--remat``) recomputes dense-block activations in the backward,
+with the JAX package's three granularities (``--remat_policy``):
+'layer' checkpoints each dense layer (saves layer inputs), 'block' each
+dense block (saves block boundaries only), 'convs' each layer but keeps its
+two conv outputs, so only BN/ReLU are recomputed.  Recomputation does not
+update BN statistics (``layers.checkpoint``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy
 
-from bts_tpu_torch.models.layers import BatchNorm, Conv2d, pad_stride2
+from bts_tpu_torch.models.layers import BatchNorm, Conv2d, checkpoint, pad_stride2
+
+REMAT_POLICIES = ("layer", "block", "convs")
+
+
+def _save_convs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of 'convs': keep conv outputs (the JAX
+    package's ``dense_1x1_out``/``dense_3x3_out``), recompute the rest."""
+    if op == torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _run_layers(layers: Sequence[nn.Module], x):
+    for layer in layers:
+        x = layer(x)
+    return x
 
 
 class DenseLayer(nn.Module):
@@ -55,10 +79,16 @@ class DenseNet(nn.Module):
         num_init_features: int = 64,
         dtype: torch.dtype = torch.float32,
         pad_style: str = "same",
+        remat: bool = False,
+        remat_policy: str = "layer",
     ):
         super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, got {remat_policy!r}")
         self.block_config = tuple(block_config)
         self.pad_style = pad_style
+        self.remat = remat
+        self.remat_policy = remat_policy
         f = nn.ModuleDict()
         # the stride-2 stem pads explicitly (layers.pad2), so its conv has none
         f["conv0"] = Conv2d(3, num_init_features, 7, stride=2, padding=0, bias=False, dtype=dtype)
@@ -81,6 +111,16 @@ class DenseNet(nn.Module):
         self.features = f
         self.channels = tuple(channels)  # of the five taps, strides 2..32
 
+    def _run_block(self, layers: Sequence[nn.Module], x):
+        if not (self.remat and torch.is_grad_enabled()):
+            return _run_layers(layers, x)
+        if self.remat_policy == "block":
+            return checkpoint(_run_layers, layers, x)
+        policy = _save_convs if self.remat_policy == "convs" else None
+        for layer in layers:
+            x = checkpoint(layer, x, policy=policy)
+        return x
+
     def forward(self, x):
         f = self.features
         feats = []
@@ -90,8 +130,7 @@ class DenseNet(nn.Module):
         x = F.max_pool2d(pad_stride2(x, 3, self.pad_style, value=float("-inf")), 3, stride=2)
         feats.append(x)  # pool0: H/4
         for i in range(len(self.block_config)):
-            for layer in f[f"denseblock{i + 1}"].values():
-                x = layer(x)
+            x = self._run_block(list(f[f"denseblock{i + 1}"].values()), x)
             if i != len(self.block_config) - 1:
                 x = f[f"transition{i + 1}"](x)
                 if i < 2:

@@ -4,8 +4,9 @@
 Conventions, as in the JAX package:
 - weights are kept in f32 and cast per conv to the compute ``dtype``, which
   is also the dtype of every activation between modules;
-- BatchNorm uses eps 1.1e-5, runs in f32 and casts back; this slice serves,
-  so it applies the running statistics only;
+- BatchNorm uses eps 1.1e-5, runs in f32 and casts back; in train mode it
+  normalises by the batch statistics and folds them into the running ones
+  as flax does (momentum 0.99 on the old value, biased batch variance);
 - ELU inside the decoder, ReLU inside the dense-ASPP cells.
 
 Module attribute names are the upstream torch names that
@@ -15,15 +16,53 @@ Module attribute names are the upstream torch names that
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from bts_tpu_torch.ops.resize import upsample_nearest_2x
 
 BN_EPS = 1.1e-5
+BN_MOMENTUM = 0.99  # flax's: running = 0.99 * running + 0.01 * batch
+
+_remat = threading.local()  # .recomputing: inside a checkpoint's recompute
+
+
+def recomputing() -> bool:
+    """True while a :func:`checkpoint` re-runs its function in the backward."""
+    return getattr(_remat, "recomputing", False)
+
+
+@contextlib.contextmanager
+def _recompute_scope(inner):
+    prev = recomputing()
+    _remat.recomputing = True
+    try:
+        with inner:
+            yield
+    finally:
+        _remat.recomputing = prev
+
+
+def checkpoint(fn, *args, policy=None):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)`` whose
+    recompute leaves BatchNorm's running statistics alone, as flax's
+    ``nn.remat`` discards the recompute's mutations.  ``policy`` (optional)
+    is a selective-checkpoint policy: what it saves is not recomputed."""
+
+    def context_fn():
+        if policy is None:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        else:
+            fwd, rec = torch.utils.checkpoint.create_selective_checkpoint_contexts(policy)
+        return fwd, _recompute_scope(rec)
+
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
 
 
 def pad2(kernel: int, style: str, size: int) -> Tuple[int, int]:
@@ -94,9 +133,16 @@ class ConvBlock(Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm in f32 with the reference lineage's eps; the
-    result is cast back to the input dtype.  Parameter and buffer names are
-    torch's (weight, bias, running_mean, running_var)."""
+    """BatchNorm in f32 with the reference lineage's eps; the result is cast
+    back to the input dtype.  Parameter and buffer names are torch's
+    (weight, bias, running_mean, running_var).
+
+    Train mode (``module.train()``) is flax's ``BatchNorm(train=True)``: the
+    batch mean and the biased batch variance E[x^2] - E[x]^2 (clipped at 0)
+    normalise, and ``running = 0.99 * running + 0.01 * batch`` updates the
+    buffers, except while a :func:`checkpoint` recomputes or when
+    ``track_stats`` is False (``--bn_no_track_stats``).  torch's own
+    batch_norm would fold the unbiased variance into the running one."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -104,11 +150,23 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.track_stats = True
 
     def forward(self, x):
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        xf = x.float()
+        if self.training:
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            if self.track_stats and not recomputing():
+                with torch.no_grad():
+                    m = BN_MOMENTUM
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 

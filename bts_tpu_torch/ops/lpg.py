@@ -11,7 +11,8 @@ The functions keep the JAX layout so they compare like with like: plane
 - :func:`lpg_reference`, :func:`lpg_strided`, :func:`plane_from_spherical`:
   plain PyTorch.
 - :func:`lpg_scaled_from_raw`: the fused head the decoder calls, dispatched
-  to the Hopper kernel (``ops/lpg_cuda.py``) or its plain version.
+  to the Hopper kernels (``ops/lpg_cuda.py``: K1 forward, K2 backward) or
+  to the plain version, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -84,8 +85,10 @@ def lpg_scaled_from_raw(
     is divided by it again, so neither path multiplies by it.
 
     ``use_pallas`` keeps the config's name for the kernel switch: "auto" and
-    "always" launch the Hopper kernel on a CUDA tensor (or raise); "never"
-    selects the plain version.  A CPU tensor always takes the plain version.
+    "always" go through :class:`~bts_tpu_torch.ops.lpg_cuda.LpgFused`, which
+    launches K1 and, in the backward, K2 on a CUDA tensor (or raises);
+    "never" selects the plain version, differentiated by autograd.  A CPU
+    tensor always computes the plain versions.
     """
     del max_depth
     if use_pallas not in USE_PALLAS_CHOICES:

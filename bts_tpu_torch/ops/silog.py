@@ -1,0 +1,34 @@
+"""Scale-invariant log (silog) training loss; counterpart of
+``bts_tpu/ops/silog.py``.
+
+    d    = log(pred[mask]) - log(gt[mask])
+    loss = sqrt(mean(d^2) - variance_focus * mean(d)^2) * 10
+
+with variance_focus = 0.85 by default.  The valid mask is ``gt > 1.0`` for
+KITTI (sparse LiDAR) and ``gt > 0.1`` for NYU.  Mask-weighted, as the JAX
+version, so an all-masked batch gives a finite loss.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def silog_loss(depth_est, depth_gt, mask, variance_focus: float = 0.85) -> torch.Tensor:
+    """Mask-weighted silog loss in f32 whatever the input dtype (the loss is a
+    difference of means whose cancellation is catastrophic in bf16)."""
+    mask = mask.float()
+    n = mask.sum().clamp_min(1.0)
+    est = torch.where(mask > 0, depth_est.float(), 1.0)
+    gt = torch.where(mask > 0, depth_gt.float(), 1.0)
+    d = (torch.log(est) - torch.log(gt)) * mask
+    mean_d2 = (d * d).sum() / n
+    mean_d = d.sum() / n
+    # max() guards the sqrt against tiny negative values from cancellation
+    return torch.sqrt(torch.clamp_min(mean_d2 - variance_focus * mean_d * mean_d, 1e-12)) * 10.0
+
+
+def default_mask(depth_gt: torch.Tensor, dataset: str) -> torch.Tensor:
+    """Reference valid-pixel mask: gt > 1.0 (kitti) / gt > 0.1 (nyu)."""
+    thresh = 0.1 if dataset == "nyu" else 1.0
+    return depth_gt > thresh

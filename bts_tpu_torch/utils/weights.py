@@ -1,36 +1,17 @@
-"""JAX variables -> the port's ``state_dict``, through the JAX package's
-own mapping (``bts_tpu/utils/torch_converter.py``: ``ENCODER_MAPPINGS``,
-``decoder_mapping``, ``flax_to_torch_tensor``).
-
-``torch_converter`` imports only numpy, but the ``bts_tpu.utils`` package
-around it imports jax and orbax, so the file is loaded by path and the
-package is never imported.
-"""
+"""JAX variables -> the port's ``state_dict``, through the port's copy of
+the JAX package's mapping (``utils/torch_converter.py``: ``ENCODER_MAPPINGS``,
+``decoder_mapping``, ``flax_to_torch_tensor``)."""
 
 from __future__ import annotations
 
-import functools
-import importlib.util
-from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-import bts_tpu
+from bts_tpu_torch.utils import torch_converter as tc
 
 ENCODER_PREFIXES = ("DenseNet", "ResNet", "MobileNetV2")  # flax encoder subtree names
-
-
-@functools.lru_cache(maxsize=None)
-def torch_converter():
-    """``bts_tpu/utils/torch_converter.py`` as a module, without importing
-    ``bts_tpu.utils``."""
-    path = Path(bts_tpu.__file__).parent / "utils" / "torch_converter.py"
-    spec = importlib.util.spec_from_file_location("bts_tpu_torch.utils._torch_converter", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 def _leaf(tree: dict, path: Sequence[str]) -> np.ndarray:
@@ -53,7 +34,6 @@ def state_dict_from_jax(
     ``encoder_mapping`` overrides ``ENCODER_MAPPINGS[encoder_name]`` for an
     encoder outside the registry (a test's tiny DenseNet).
     """
-    tc = torch_converter()
     params, stats = variables["params"], variables.get("batch_stats", {})
     enc = [k for k in params if k.split("_")[0] in ENCODER_PREFIXES]
     if len(enc) != 1:

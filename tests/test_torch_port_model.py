@@ -1,9 +1,10 @@
 """bts_tpu_torch's layers, encoder, decoder and serving CLI against
 bts_tpu on the CPU, with the same weights.
 
-Weights go from the flax tree to the port through the JAX package's own
-mapping (``bts_tpu/utils/torch_converter.py``, via ``utils/weights.py``), with
-BN statistics and biases randomised so every leaf matters.
+Weights go from the flax tree to the port through the port's copy of the
+JAX package's mapping (``bts_tpu_torch/utils/torch_converter.py``, via
+``utils/weights.py``; held equal to the original below), with BN statistics
+and biases randomised so every leaf matters.
 
 Tolerances: a single layer holds rtol 2e-5, atol 2e-5*max|ref| (one conv's
 summation order); the whole tiny slice holds the decoder-oracle rule of
@@ -21,16 +22,15 @@ import numpy as np
 import pytest
 import torch
 
-from bts_tpu.config import Config
+from bts_tpu_torch.config import Config
 from bts_tpu.models import layers as jlayers
 from bts_tpu.models.bts import BtsDecoder as JBtsDecoder
 from bts_tpu.models.encoders.densenet import DenseNet as JDenseNet
 from bts_tpu_torch.models import layers
 from bts_tpu_torch.models.bts import BtsDecoder, BtsModel, create_model
 from bts_tpu_torch.models.encoders.densenet import DenseNet
+from bts_tpu_torch.utils import torch_converter as TC
 from bts_tpu_torch.utils import weights
-
-TC = weights.torch_converter()
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -84,7 +84,7 @@ def _load_port(module, variables, entries):
             tree = tree[p]
         sd[torch_key.lstrip(".")] = torch.from_numpy(TC.flax_to_torch_tensor(np.asarray(tree), kind))
     weights.load_state_dict(module, sd)
-    return module
+    return module.eval()  # inference: BatchNorm applies its running statistics
 
 
 def _nchw(x):
@@ -251,17 +251,56 @@ def test_unported_options_raise(change, match):
         create_model(Config(bts_size=128, **change))
 
 
+PORT_MODULES = (
+    "bts_tpu_torch", "bts_tpu_torch.config", "bts_tpu_torch.models", "bts_tpu_torch.ops",
+    "bts_tpu_torch.ops.lpg_cuda", "bts_tpu_torch.ops.silog", "bts_tpu_torch.data.augment",
+    "bts_tpu_torch.utils.weights", "bts_tpu_torch.utils.torch_converter",
+    "bts_tpu_torch.utils.checkpoint", "bts_tpu_torch.utils.summary", "bts_tpu_torch.utils.preemption",
+    "bts_tpu_torch.training.optimizer", "bts_tpu_torch.training.trainer",
+    "bts_tpu_torch.cli.bts_test",
+)
+NEEDS_PIL = ("bts_tpu_torch.data.crops", "bts_tpu_torch.data.depth_io",
+             "bts_tpu_torch.data.dataloader", "bts_tpu_torch.cli.bts_main", "chip_smoke")
+
+
 def test_port_imports_no_jax_and_no_pil():
+    """Every module of the port and chip_smoke.py, imported in a fresh
+    process: none pulls in JAX, its libraries, or any module of the JAX
+    package ``bts_tpu``; the serving and training modules before the loader
+    do not pull in Pillow either."""
     code = (
-        "import sys\n"
-        "import bts_tpu_torch, bts_tpu_torch.models, bts_tpu_torch.ops, bts_tpu_torch.ops.lpg_cuda\n"
-        "import bts_tpu_torch.utils.weights as w\n"
-        "from bts_tpu_torch.cli.bts_test import predict\n"
-        "w.torch_converter()\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', 'PIL') if m in sys.modules]\n"
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "assert 'PIL' not in sys.modules\n"
+        f"for m in {NEEDS_PIL!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'bts_tpu')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_converter_copy_matches_the_jax_package():
+    """The port's copy of the weight-name mapping is the JAX package's."""
+    from bts_tpu.utils import torch_converter as jtc
+
+    assert TC.decoder_mapping(512) == jtc.decoder_mapping(512)
+    for name in ("densenet121_bts", "densenet161_bts"):
+        assert TC.ENCODER_MAPPINGS[name]() == jtc.ENCODER_MAPPINGS[name]()
+    assert TC.K_CONV == jtc.K_CONV and TC.K_DIRECT == jtc.K_DIRECT
+
+
+@pytest.mark.parametrize("cli", ["bts_test", "bts_main"])
+def test_cli_raises_on_cuda_without_a_card(cli, monkeypatch, tmp_path):
+    """--device cuda (the default) on a machine without a card raises; the
+    entry points never move to the CPU by themselves."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "split.txt").write_text("")
+    main = importlib.import_module(f"bts_tpu_torch.cli.{cli}").main
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        main(["--filenames_file", str(tmp_path / "split.txt"), "--device", "cuda"])
 
 
 @pytest.mark.parametrize("with_checkpoint", [False, True])
@@ -285,7 +324,7 @@ def test_cli_writes_uint16_predictions(tmp_path, with_checkpoint):
     argv = ["--encoder", "densenet121_bts", "--bts_size", "128", "--dataset", "kitti",
             "--data_path", str(tmp_path), "--filenames_file", str(tmp_path / "split.txt"),
             "--compute_dtype", "float32", "--out_path", str(tmp_path / "out"), "--save_lpg",
-            "--use_native_loader", "never"]  # PIL decode; builds no native library
+            "--use_native_loader", "never", "--device", "cpu"]
     if with_checkpoint:
         torch.save(model.state_dict(), tmp_path / "sd.pt")
         argv += ["--checkpoint_path", str(tmp_path / "sd.pt")]

@@ -1,10 +1,12 @@
 """bts_tpu_torch ops against bts_tpu on the CPU: LPG, the fused head K1's
 plain version (against the Pallas kernel in interpret mode and against the
-composed jnp path), resize and eval preprocessing.  The same numpy inputs go
-to both sides.
+composed jnp path), K2's plain version (against jax.grad of the interpret-mode
+Pallas head), the silog loss, resize and eval preprocessing.  The same numpy
+inputs go to both sides.
 
 Tolerance: rtol 2e-5, atol 2e-6 (tests/test_ops.py's fused-head rule); the
-random inputs keep every LPG denominator well away from zero.
+gradients rtol 2e-4, atol 2e-5*max|ref| (its gradient rule).  The random
+inputs keep every LPG denominator well away from zero.
 
 The CUDA kernel itself runs only on a card: tests/test_torch_port_cuda.py.
 """
@@ -18,7 +20,8 @@ import jax.numpy as jnp
 from bts_tpu.ops import lpg as jlpg
 from bts_tpu.ops import lpg_pallas
 from bts_tpu.ops.resize import upsample_nearest_2x as j_upsample
-from bts_tpu_torch.ops import _build, lpg, lpg_cuda
+from bts_tpu.ops import silog as jsilog
+from bts_tpu_torch.ops import _build, lpg, lpg_cuda, silog
 from bts_tpu_torch.ops.resize import upsample_nearest_2x
 
 RTOL, ATOL = 2e-5, 2e-6
@@ -82,6 +85,67 @@ def test_fused_plain_matches_composed_jnp_path(k):
     raw = _raw(30 + k)
     ref = jlpg.lpg_scaled_from_raw(jnp.asarray(raw), k, 80.0, use_pallas="never")
     _close(lpg_cuda.lpg_fused_plain(torch.from_numpy(raw), k), ref)
+
+
+def _grad_close(port, ref):
+    ref = np.asarray(ref, np.float32)
+    _close(port.float(), ref, rtol=2e-4, atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_fused_bwd_plain_matches_pallas_grad(k, monkeypatch):
+    """K2's plain version against jax.grad of the TPU head (K1 + K2) run in
+    interpret mode, on a permuted view as the decoder passes it."""
+    monkeypatch.setattr(lpg_pallas, "_INTERPRET", True)
+    raw = _raw(40 + k, (2, 3, 5, 7)).transpose(0, 2, 3, 1)
+    g = np.random.default_rng(50 + k).normal(size=(2, 5 * k, 7 * k)).astype(np.float32)
+    import jax
+
+    ref = jax.grad(lambda r: (lpg_pallas.lpg_fused(r, k) * g).sum())(jnp.asarray(raw))
+    port = lpg_cuda.lpg_fused_bwd_plain(torch.from_numpy(raw), torch.from_numpy(g), k)
+    assert port.shape == raw.shape
+    _grad_close(port, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_head_autograd_is_the_plain_backward(dtype):
+    """On a CPU tensor, autograd through lpg_fused (the Function, whose
+    backward is lpg_fused_bwd) equals autograd of lpg_fused_plain; the
+    gradient of bf16 raw comes back bf16, as the JAX VJP casts it."""
+    raw = torch.from_numpy(_raw(7, (2, 3, 6, 10))).to(dtype).permute(0, 2, 3, 1)
+    g = torch.from_numpy(np.random.default_rng(8).normal(size=(2, 24, 40)).astype(np.float32))
+    a = raw.detach().requires_grad_()
+    (lpg_cuda.lpg_fused(a, 4) * g).sum().backward()
+    b = raw.detach().float().requires_grad_()
+    (lpg_cuda.lpg_fused_plain(b, 4) * g).sum().backward()
+    assert a.grad.dtype == dtype
+    if dtype == torch.float32:
+        _grad_close(a.grad, b.grad.numpy())
+    else:  # one bf16 rounding of the same f32 gradient
+        _close(a.grad.float(), b.grad.to(dtype).float().numpy(), rtol=2**-7,
+               atol=2e-5 * b.grad.abs().max().item())
+
+
+def test_cpu_backward_launches_nothing(monkeypatch):
+    monkeypatch.setattr(lpg_cuda.lpg_fused_bwd, "launches", 0)
+    raw = torch.from_numpy(_raw(9, (1, 4, 4, 3))).requires_grad_()
+    lpg.lpg_scaled_from_raw(raw, 2, 10.0).sum().backward()
+    assert lpg_cuda.lpg_fused_bwd.launches == 0 and raw.grad is not None
+
+
+@pytest.mark.parametrize("dataset", ["kitti", "nyu"])
+def test_silog_and_mask_match_jax(dataset):
+    rng = np.random.default_rng(11)
+    est = rng.uniform(0.5, 80.0, (2, 6, 10)).astype(np.float32)
+    gt = np.where(rng.random((2, 6, 10)) < 0.5, rng.uniform(0.0, 80.0, (2, 6, 10)), 0.0).astype(np.float32)
+    mask = silog.default_mask(torch.from_numpy(gt), dataset)
+    jmask = jsilog.default_mask(jnp.asarray(gt), dataset)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    for m, jm in ((mask, jmask), (torch.zeros_like(mask), jnp.zeros_like(jmask))):  # and all masked
+        port = silog.silog_loss(torch.from_numpy(est), torch.from_numpy(gt), m, 0.85)
+        ref = jsilog.silog_loss(jnp.asarray(est), jnp.asarray(gt), jm, 0.85)
+        assert torch.isfinite(port)
+        _close(port, ref, rtol=1e-6, atol=1e-6)
 
 
 def test_fused_plain_reads_permuted_views():
