@@ -8,6 +8,8 @@ the reference each module is tested against.  The layout mirrors it:
   bts_tpu/ops/lpg.py, lpg_pallas.py     -> bts_tpu_torch/ops/lpg.py, lpg_cuda.py
                                            + csrc/lpg_fused.cu (sm_90a kernels,
                                            forward and backward)
+  bts_tpu/ops/tail_pallas.py            -> bts_tpu_torch/ops/tail_cuda.py
+                                           + csrc/fused_tail.cu
   bts_tpu/ops/silog.py                  -> bts_tpu_torch/ops/silog.py
   bts_tpu/data/{augment,dataloader,crops,depth_io}.py
                                         -> bts_tpu_torch/data/...

@@ -21,6 +21,13 @@ final_depth), each (B, 1, H, W) f32.  BN, both sigmoids and the LPG maths
 run in f32; convs in the compute dtype, from f32 weights.  ``model.train()``
 is the JAX model's ``train=True``: BatchNorm normalises by batch statistics
 and updates its running ones; nothing else changes.
+
+``fused_tail="always"`` (inference only) replaces everything from upconv1 on
+with the fused tail of ``ops/tail_cuda.py``: the three LPG maps come as 2x2
+phase planes (K5) and upconv1 -> reduc1x1 -> concat -> conv1 -> get_depth
+runs as one kernel (K6) in the TPU kernel's bf16 rounding schedule, reading
+the same modules' weights.  "auto" keeps the literal tail, as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -42,10 +49,24 @@ from bts_tpu_torch.models.layers import (
     Reduction1x1,
     UpConv,
 )
+from bts_tpu_torch.ops import tail_cuda
 from bts_tpu_torch.ops.lpg import lpg_scaled_from_raw, lpg_strided, plane_from_spherical
 
 KITTI_FOCAL = 715.0873
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+FUSED_TAIL_CHOICES = ("auto", "always", "never")
+
+
+def _tail_ok(fused_tail: str, train: bool, shape) -> bool:
+    """Whether the decoder takes the fused tail (a copy of the JAX package's
+    dispatch).  "auto" and "never" keep the literal tail, as does train mode
+    (the fused tail has no backward); "always" on a shape the kernel does not
+    take raises.  ``shape`` is iconv2's (B, Hh, W2, C)."""
+    if fused_tail != "always" or train:
+        return False
+    if not tail_cuda.tail_supported(shape):
+        raise ValueError(f"fused_tail='always' unsupported for decoder tail shape {shape}")
+    return True
 
 
 class BtsDecoder(nn.Module):
@@ -59,8 +80,15 @@ class BtsDecoder(nn.Module):
         dtype: torch.dtype = torch.float32,
         use_pallas: str = "auto",
         lane_pad: int = 0,
+        fused_tail: str = "auto",
     ):
+        """``use_pallas`` keeps the config's name for the kernel switch:
+        "auto" and "always" take the Hopper kernels (K1/K2, and K5/K6 on the
+        fused tail), "never" their plain PyTorch versions.  ``fused_tail``:
+        see the module docstring."""
         super().__init__()
+        if fused_tail not in FUSED_TAIL_CHOICES:
+            raise ValueError(f"fused_tail must be one of {FUSED_TAIL_CHOICES}, got {fused_tail!r}")
         if lane_pad > 1:
             raise NotImplementedError(
                 "lane_pad (an experiment that changes the parameter tree) is not ported "
@@ -70,7 +98,9 @@ class BtsDecoder(nn.Module):
         nf, dt = num_features, dtype
         self.max_depth = max_depth
         self.dtype = dtype
+        self.num_features = num_features
         self.use_pallas = use_pallas
+        self.fused_tail = fused_tail
         self.upconv5 = UpConv(cb, nf, dt)
         self.bn5 = BatchNorm(nf)
         self.conv5 = ConvBlock(nf + c16, nf, dtype=dt)
@@ -110,6 +140,22 @@ class BtsDecoder(nn.Module):
         plane = plane_from_spherical(reduc.permute(0, 2, 3, 1), self.max_depth)
         return (lpg_strided(plane, k, stride) / self.max_depth)[:, None].to(self.dtype)
 
+    def _tail(self, iconv2, reduc2, reduc4, reduc8):
+        """The fused tail: the three LPG maps as phase planes (K5, no K1),
+        then upconv1 .. get_depth in one kernel (K6) on bf16 iconv2 whatever
+        the compute dtype; returns the four maps and sigmoid(final logits),
+        each (B, 1, H, W) f32.  ``use_pallas="never"`` takes the plain
+        versions of both."""
+        plain = self.use_pallas == "never"
+        phase = tail_cuda.lpg_phase_planes_plain if plain else tail_cuda.lpg_phase_planes
+        tail = tail_cuda.fused_tail_plain if plain else tail_cuda.fused_tail
+        d8ph, d4ph, d2ph = (phase(r.permute(0, 2, 3, 1), k)
+                            for r, k in ((reduc8, 8), (reduc4, 4), (reduc2, 2)))
+        # both versions round iconv2 to bf16 (the kernel's wrapper in its one
+        # channels-last copy)
+        fin_ph, d1ph = tail(iconv2.permute(0, 2, 3, 1), d2ph, d4ph, d8ph, tail_cuda.tail_params(self))
+        return tuple(tail_cuda.interleave2x2(p)[:, None] for p in (d8ph, d4ph, d2ph, d1ph, fin_ph))
+
     def forward(self, feats, focal: Optional[torch.Tensor] = None):
         skip2, skip4, skip8, skip16, bottleneck = feats
         dt, md = self.dtype, self.max_depth
@@ -133,27 +179,34 @@ class BtsDecoder(nn.Module):
             torch.cat([iconv4, daspp_3, daspp_6, daspp_12, daspp_18, daspp_24], dim=1)
         )
 
+        b, _, hh, w2 = skip2.shape
+        use_tail = _tail_ok(self.fused_tail, self.training, (b, hh, w2, self.num_features // 8))
         reduc8 = self.reduc8x8(daspp_feat)  # LPG head at 1/8
-        depth_8x8_scaled = self._lpg(reduc8, 8)
+        depth_8x8_scaled = None if use_tail else self._lpg(reduc8, 8)
         upconv3 = self.bn3(self.upconv3(daspp_feat))  # H/4
         iconv3 = self.conv3(torch.cat([upconv3, skip4, self._guidance(reduc8, 8, 4)], dim=1))
 
         reduc4 = self.reduc4x4(iconv3)  # LPG head at 1/4
-        depth_4x4_scaled = self._lpg(reduc4, 4)
+        depth_4x4_scaled = None if use_tail else self._lpg(reduc4, 4)
         upconv2 = self.bn2(self.upconv2(iconv3))  # H/2
         iconv2 = self.conv2(torch.cat([upconv2, skip2, self._guidance(reduc4, 4, 2)], dim=1))
 
         reduc2 = self.reduc2x2(iconv2)  # LPG head at 1/2
-        depth_2x2_scaled = self._lpg(reduc2, 2)
-        upconv1 = self.upconv1(iconv2)  # H
-        depth_1x1 = torch.sigmoid(self.reduc1x1(upconv1).float())
-        concat1 = torch.cat(
-            [upconv1, depth_1x1.to(dt), depth_2x2_scaled.to(dt),
-             depth_4x4_scaled.to(dt), depth_8x8_scaled.to(dt)],
-            dim=1,
-        )
-        iconv1 = self.conv1(concat1)
-        final_depth = md * torch.sigmoid(self.get_depth(iconv1).float())
+        if use_tail:
+            depth_8x8_scaled, depth_4x4_scaled, depth_2x2_scaled, depth_1x1, final_sig = self._tail(
+                iconv2, reduc2, reduc4, reduc8)
+            final_depth = md * final_sig
+        else:
+            depth_2x2_scaled = self._lpg(reduc2, 2)
+            upconv1 = self.upconv1(iconv2)  # H
+            depth_1x1 = torch.sigmoid(self.reduc1x1(upconv1).float())
+            concat1 = torch.cat(
+                [upconv1, depth_1x1.to(dt), depth_2x2_scaled.to(dt),
+                 depth_4x4_scaled.to(dt), depth_8x8_scaled.to(dt)],
+                dim=1,
+            )
+            iconv1 = self.conv1(concat1)
+            final_depth = md * torch.sigmoid(self.get_depth(iconv1).float())
         if focal is not None:
             # KITTI focal normalisation; samples with no focal recorded (<= 0)
             # pass through unchanged
@@ -196,11 +249,6 @@ def create_model(cfg, device="cpu") -> BtsModel:
     ``cfg.seed``, in eval mode on ``device`` (``Trainer`` switches it to
     train mode).  The initialisation runs on the CPU, so a seed gives the
     same weights on every device."""
-    if cfg.fused_tail == "always":
-        raise NotImplementedError(
-            "--fused_tail always (the fused decoder tail, K5/K6) is not ported to "
-            "bts_tpu_torch yet (ROADMAP.md, 'TPU kernels to port')"
-        )
     if cfg.spatial_shards > 1 or cfg.spatial_shards_w > 1:
         raise NotImplementedError(
             "--spatial_shards is not ported to bts_tpu_torch yet (ROADMAP.md, 'Modules to port')"
@@ -214,6 +262,7 @@ def create_model(cfg, device="cpu") -> BtsModel:
         num_features=cfg.bts_size,
         dtype=dtype,
         use_pallas=cfg.use_pallas,
+        fused_tail=cfg.fused_tail,
     )
     model = BtsModel(encoder, decoder, dtype)
     init_weights(model, torch.Generator().manual_seed(cfg.seed))

@@ -1,4 +1,5 @@
 from bts_tpu_torch.ops.lpg import (  # noqa: F401
+    local_planar_guidance,
     lpg_reference,
     lpg_scaled_from_raw,
     lpg_strided,

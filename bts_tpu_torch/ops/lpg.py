@@ -10,6 +10,9 @@ The functions keep the JAX layout so they compare like with like: plane
 
 - :func:`lpg_reference`, :func:`lpg_strided`, :func:`plane_from_spherical`:
   plain PyTorch.
+- :func:`local_planar_guidance`: the public LPG op, dispatched to the Hopper
+  kernels (``ops/lpg_cuda.py``: K3 forward, K4 backward) or to
+  :func:`lpg_reference`.
 - :func:`lpg_scaled_from_raw`: the fused head the decoder calls, dispatched
   to the Hopper kernels (``ops/lpg_cuda.py``: K1 forward, K2 backward) or
   to the plain version, which autograd differentiates.
@@ -21,27 +24,15 @@ import math
 
 import torch
 
-from bts_tpu_torch.ops.lpg_cuda import _patch_coords, lpg_fused, lpg_fused_plain
+from bts_tpu_torch.ops.lpg_cuda import _plane_cells, lpg_fused, lpg_fused_plain, lpg_plane
+from bts_tpu_torch.ops.lpg_cuda import lpg_plane_plain as lpg_reference  # noqa: F401
 
 USE_PALLAS_CHOICES = ("auto", "always", "never")
 
 
-def _plane_cells(plane_eq: torch.Tensor):
-    """(n1, n2, n3, n4) of a (B, h, w, 4) plane, each (B, h, 1, w, 1) f32."""
-    if plane_eq.shape[-1] != 4:
-        raise ValueError(f"plane_eq last dim must be 4, got {plane_eq.shape[-1]}")
-    pe = plane_eq.float()
-    return tuple(pe[..., i][:, :, None, :, None] for i in range(4))
-
-
-def lpg_reference(plane_eq: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain LPG: plane_eq (B, h, w, 4) -> depth (B, h*k, w*k) f32."""
-    b, h, w, _ = plane_eq.shape
-    n1, n2, n3, n4 = _plane_cells(plane_eq)
-    off = _patch_coords(k, plane_eq.device)
-    u = off.view(1, 1, 1, 1, k)
-    v = off.view(1, 1, k, 1, 1)
-    return (n4 / (n1 * u + n2 * v + n3)).reshape(b, h * k, w * k)
+def _check_setting(use_pallas: str) -> None:
+    if use_pallas not in USE_PALLAS_CHOICES:
+        raise ValueError(f"use_pallas must be one of {USE_PALLAS_CHOICES}, got {use_pallas!r}")
 
 
 def lpg_strided(plane_eq: torch.Tensor, k: int, stride: int) -> torch.Tensor:
@@ -77,6 +68,19 @@ def plane_from_spherical(raw3: torch.Tensor, max_depth: float) -> torch.Tensor:
     return torch.stack([n1, n2, n3, dist], dim=-1)
 
 
+def local_planar_guidance(plane_eq: torch.Tensor, k: int, use_pallas: str = "auto") -> torch.Tensor:
+    """The public LPG op: plane_eq (B, h, w, 4) -> depth (B, h*k, w*k) f32.
+
+    "never" computes :func:`lpg_reference`; "auto" and "always" go through
+    :class:`~bts_tpu_torch.ops.lpg_cuda.Lpg`, which launches K3 and, in the
+    backward, K4 on a CUDA tensor (or raises) and computes the plain
+    versions on a CPU tensor."""
+    _check_setting(use_pallas)
+    if use_pallas == "never":
+        return lpg_reference(plane_eq, k)
+    return lpg_plane(plane_eq, k)
+
+
 def lpg_scaled_from_raw(
     raw3: torch.Tensor, k: int, max_depth: float, use_pallas: str = "auto"
 ) -> torch.Tensor:
@@ -91,8 +95,7 @@ def lpg_scaled_from_raw(
     tensor always computes the plain versions.
     """
     del max_depth
-    if use_pallas not in USE_PALLAS_CHOICES:
-        raise ValueError(f"use_pallas must be one of {USE_PALLAS_CHOICES}, got {use_pallas!r}")
+    _check_setting(use_pallas)
     if use_pallas == "never":
         return lpg_fused_plain(raw3, k)
     return lpg_fused(raw3, k)

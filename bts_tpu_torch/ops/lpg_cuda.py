@@ -1,20 +1,23 @@
-"""Fused reduction_1x1 -> LPG head: the Hopper kernels (forward K1, backward
-K2), their wrappers, the autograd Function, and their plain PyTorch versions.
+"""The LPG kernels on Hopper: the fused reduction_1x1 -> LPG head (forward
+K1, backward K2) and the LPG of an already-transformed plane (forward K3,
+backward K4), their wrappers, autograd Functions and plain PyTorch versions.
 
-Counterpart of ``bts_tpu/ops/lpg_pallas.py::lpg_fused`` and its VJP.  The
-public functions keep the JAX layout: raw (B, h, w, 3) in any float dtype and
-any strides -> depth / max_depth (B, h*k, w*k) float32.
+Counterpart of ``bts_tpu/ops/lpg_pallas.py``: ``lpg_fused`` and its VJP (K1,
+K2), ``lpg`` and its VJP (K3, K4).  The public functions keep the JAX layout:
+raw (B, h, w, 3) or plane (B, h, w, 4) in any float dtype and any strides ->
+(B, h*k, w*k) float32.
 
 - :func:`lpg_fused` is differentiable (:class:`LpgFused`): its forward is
   :func:`lpg_fused_fwd`, its backward :func:`lpg_fused_bwd`.
-- :func:`lpg_fused_fwd` launches K1 (``csrc/lpg_fused.cu``) on a CUDA tensor
-  and computes :func:`lpg_fused_plain` on a CPU tensor.
-- :func:`lpg_fused_bwd` launches K2 on CUDA tensors and computes
-  :func:`lpg_fused_bwd_plain` on CPU tensors.  d(raw) comes back in raw's
-  dtype, as the JAX VJP casts it.
+- :func:`lpg_plane` is differentiable (:class:`Lpg`): its forward is
+  :func:`lpg_plane_fwd`, its backward :func:`lpg_plane_bwd`.
+- Each wrapper launches its kernel (``csrc/lpg_fused.cu``) on CUDA tensors
+  and computes its plain version (``*_plain``) on CPU tensors.  A gradient
+  comes back in the dtype of the input, as the JAX VJPs cast it.
 - On a CUDA tensor a wrapper launches its kernel or raises; it never falls
-  back.  Each launch adds one to ``lpg_fused.launches`` (K1) or
-  ``lpg_fused_bwd.launches`` (K2).
+  back.  Each launch adds one to ``lpg_fused.launches`` (K1),
+  ``lpg_fused_bwd.launches`` (K2), ``lpg_plane.launches`` (K3) or
+  ``lpg_plane_bwd.launches`` (K4).
 - The plain versions are the CPU path, the ``use_pallas="never"`` path (the
   forward, differentiated by autograd) and the kernels' oracles.
 """
@@ -104,6 +107,41 @@ def fused_denominator(raw3: torch.Tensor, k: int) -> torch.Tensor:
     return _expanded_plane(raw3, k)[1].reshape(b, h * k, w * k)
 
 
+def _plane_cells(plane_eq: torch.Tensor):
+    """(n1, n2, n3, n4) of a (B, h, w, 4) plane, each (B, h, 1, w, 1) f32."""
+    if plane_eq.shape[-1] != 4:
+        raise ValueError(f"plane_eq last dim must be 4, got {plane_eq.shape[-1]}")
+    pe = plane_eq.float()
+    return tuple(pe[..., i][:, :, None, :, None] for i in range(4))
+
+
+def lpg_plane_plain(plane_eq: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain LPG: plane_eq (B, h, w, 4) -> depth (B, h*k, w*k) f32."""
+    b, h, w, _ = plane_eq.shape
+    n1, n2, n3, n4 = _plane_cells(plane_eq)
+    off = _patch_coords(k, plane_eq.device)
+    u = off.view(1, 1, 1, 1, k)
+    v = off.view(1, 1, k, 1, 1)
+    return (n4 / (n1 * u + n2 * v + n3)).reshape(b, h * k, w * k)
+
+
+def lpg_plane_bwd_plain(plane_eq: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain backward of the LPG: plane (B, h, w, 4) and the cotangent g
+    (B, h*k, w*k) -> d(plane) (B, h, w, 4) in the plane's dtype.  The formula
+    of ``lpg_pallas.py::_bwd_kernel``: patch sums of ``-g*n4/den^2 * (u, v, 1)``
+    and ``g/den``, stacked and cast as ``_lpg_bwd`` does."""
+    b, h, w, _ = plane_eq.shape
+    n1, n2, n3, n4 = _plane_cells(plane_eq)
+    off = _patch_coords(k, plane_eq.device)
+    u = off.view(1, 1, 1, 1, k)
+    v = off.view(1, 1, k, 1, 1)
+    inv = 1.0 / (n1 * u + n2 * v + n3)
+    ginv = g.float().reshape(b, h, k, w, k) * inv
+    common = -ginv * n4 * inv
+    sums = [(common * u).sum((2, 4)), (common * v).sum((2, 4)), common.sum((2, 4)), ginv.sum((2, 4))]
+    return torch.stack(sums, dim=-1).to(plane_eq.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lpg_fused")
@@ -114,16 +152,24 @@ def _lib() -> ctypes.CDLL:
         vp, i64, i64, i64, i64, vp, i64, i64, i64, vp, i32, i32, i32, i32, i32, vp
     ]
     lib.lpg_fused_backward.restype = i32
+    lib.lpg_forward.argtypes = lib.lpg_fused_forward.argtypes
+    lib.lpg_forward.restype = i32
+    lib.lpg_phase_forward.argtypes = lib.lpg_fused_forward.argtypes
+    lib.lpg_phase_forward.restype = i32
+    lib.lpg_backward.argtypes = lib.lpg_fused_backward.argtypes
+    lib.lpg_backward.restype = i32
     lib.lpg_error_string.argtypes = [i32]
     lib.lpg_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_raw(raw3: torch.Tensor, k: int, name: str) -> None:
+def _check_raw(raw3: torch.Tensor, k: int, name: str, channels: int = 3) -> None:
+    """What the kernels take: a CUDA float (B, h, w, channels) tensor, k in
+    SUPPORTED_K, a grid within CUDA's limits."""
     if raw3.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {raw3.device}")
-    if raw3.dim() != 4 or raw3.shape[-1] != 3:
-        raise ValueError(f"{name}: raw must be (B, h, w, 3), got {tuple(raw3.shape)}")
+    if raw3.dim() != 4 or raw3.shape[-1] != channels:
+        raise ValueError(f"{name}: input must be (B, h, w, {channels}), got {tuple(raw3.shape)}")
     if not raw3.is_floating_point():
         raise TypeError(f"{name}: raw must be floating point, got {raw3.dtype}")
     if k not in SUPPORTED_K:
@@ -138,6 +184,49 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {_lib().lpg_error_string(err).decode()}")
 
 
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _forward(entry: str, x: torch.Tensor, k: int, name: str, out_shape):
+    """Launch forward ``entry`` of the library on a checked CUDA input, read
+    as f32 through its strides (a permuted view is not copied), into a new
+    f32 ``out_shape`` buffer; returns it and whether a kernel launched."""
+    b, h, w, _ = x.shape
+    xf = x.float()
+    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out, False
+    with torch.cuda.device(x.device):
+        err = getattr(_lib(), entry)(xf.data_ptr(), *xf.stride(), out.data_ptr(), b, h, w, k,
+                                     _stream(x.device))
+    _raise_on(err, name)
+    return out, True
+
+
+def _backward(entry: str, x: torch.Tensor, g: torch.Tensor, k: int, name: str, out_shape):
+    """Launch backward ``entry`` on a checked CUDA input and cotangent g
+    (B, h*k, w*k); the gradient buffer has ``out_shape`` and x's dtype."""
+    b, h, w, _ = x.shape
+    if g.device != x.device or tuple(g.shape) != (b, h * k, w * k):
+        raise ValueError(
+            f"{name}: g must be {(b, h * k, w * k)} on {x.device}, got {tuple(g.shape)} on {g.device}"
+        )
+    if x.dtype not in _OUT_DTYPES:
+        raise TypeError(f"{name}: input dtype {x.dtype} not supported")
+    xf, gf = x.float(), g.float()
+    dx = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    if dx.numel() == 0:
+        return dx, False
+    with torch.cuda.device(x.device):
+        err = getattr(_lib(), entry)(
+            xf.data_ptr(), *xf.stride(), gf.data_ptr(), *gf.stride(), dx.data_ptr(),
+            _OUT_DTYPES[x.dtype], b, h, w, k, _stream(x.device),
+        )
+    _raise_on(err, name)
+    return dx, True
+
+
 def lpg_fused_fwd(raw3: torch.Tensor, k: int) -> torch.Tensor:
     """Forward of the fused head, not differentiable: raw (B, h, w, 3) ->
     depth/max_depth (B, h*k, w*k) f32.  A CPU tensor takes
@@ -147,15 +236,8 @@ def lpg_fused_fwd(raw3: torch.Tensor, k: int) -> torch.Tensor:
         return lpg_fused_plain(raw3, k)
     _check_raw(raw3, k, "lpg_fused")
     b, h, w, _ = raw3.shape
-    x = raw3.float()  # f32 in, as _raw_components; keeps the strides of a permuted view
-    out = torch.empty((b, h * k, w * k), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().lpg_fused_forward(x.data_ptr(), *x.stride(), out.data_ptr(), b, h, w, k, stream)
-    _raise_on(err, "lpg_fused")
-    lpg_fused.launches += 1
+    out, launched = _forward("lpg_fused_forward", raw3, k, "lpg_fused", (b, h * k, w * k))
+    lpg_fused.launches += launched
     return out
 
 
@@ -169,25 +251,35 @@ def lpg_fused_bwd(raw3: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
         return lpg_fused_bwd_plain(raw3, g, k)
     _check_raw(raw3, k, "lpg_fused_bwd")
     b, h, w, _ = raw3.shape
-    if g.device != raw3.device or tuple(g.shape) != (b, h * k, w * k):
-        raise ValueError(
-            f"lpg_fused_bwd: g must be {(b, h * k, w * k)} on {raw3.device}, "
-            f"got {tuple(g.shape)} on {g.device}"
-        )
-    if raw3.dtype not in _OUT_DTYPES:
-        raise TypeError(f"lpg_fused_bwd: raw dtype {raw3.dtype} not supported")
-    x, gf = raw3.float(), g.float()
-    draw = torch.empty((b, 3, h, w), dtype=raw3.dtype, device=x.device)
-    if draw.numel() > 0:
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = _lib().lpg_fused_backward(
-                x.data_ptr(), *x.stride(), gf.data_ptr(), *gf.stride(), draw.data_ptr(),
-                _OUT_DTYPES[raw3.dtype], b, h, w, k, stream,
-            )
-        _raise_on(err, "lpg_fused_bwd")
-        lpg_fused_bwd.launches += 1
+    draw, launched = _backward("lpg_fused_backward", raw3, g, k, "lpg_fused_bwd", (b, 3, h, w))
+    lpg_fused_bwd.launches += launched
     return draw.permute(0, 2, 3, 1)
+
+
+def lpg_plane_fwd(plane_eq: torch.Tensor, k: int) -> torch.Tensor:
+    """LPG forward, not differentiable: plane (B, h, w, 4) -> depth
+    (B, h*k, w*k) f32.  A CPU tensor takes :func:`lpg_plane_plain`; a CUDA
+    tensor launches K3 and adds one to ``lpg_plane.launches``."""
+    if plane_eq.device.type == "cpu":
+        return lpg_plane_plain(plane_eq, k)
+    _check_raw(plane_eq, k, "lpg_plane", channels=4)
+    b, h, w, _ = plane_eq.shape
+    out, launched = _forward("lpg_forward", plane_eq, k, "lpg_plane", (b, h * k, w * k))
+    lpg_plane.launches += launched
+    return out
+
+
+def lpg_plane_bwd(plane_eq: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """LPG backward: plane (B, h, w, 4) and the cotangent g (B, h*k, w*k) ->
+    d(plane) (B, h, w, 4) in the plane's dtype.  CPU tensors take
+    :func:`lpg_plane_bwd_plain`; CUDA tensors launch K4 and add one to
+    ``lpg_plane_bwd.launches``."""
+    if plane_eq.device.type == "cpu" and g.device.type == "cpu":
+        return lpg_plane_bwd_plain(plane_eq, g, k)
+    _check_raw(plane_eq, k, "lpg_plane_bwd", channels=4)
+    dplane, launched = _backward("lpg_backward", plane_eq, g, k, "lpg_plane_bwd", plane_eq.shape)
+    lpg_plane_bwd.launches += launched
+    return dplane
 
 
 class LpgFused(torch.autograd.Function):
@@ -206,11 +298,35 @@ class LpgFused(torch.autograd.Function):
         return lpg_fused_bwd(raw3, g, ctx.k), None
 
 
+class Lpg(torch.autograd.Function):
+    """The LPG of a plane with K3 as its forward and K4 as its backward."""
+
+    @staticmethod
+    def forward(ctx, plane_eq, k):
+        ctx.k = k
+        ctx.save_for_backward(plane_eq)
+        return lpg_plane_fwd(plane_eq, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        (plane_eq,) = ctx.saved_tensors
+        return lpg_plane_bwd(plane_eq, g, ctx.k), None
+
+
 def lpg_fused(raw3: torch.Tensor, k: int) -> torch.Tensor:
     """Differentiable fused head: raw (B, h, w, 3) -> depth/max_depth
     (B, h*k, w*k) f32; K1 forward and K2 backward on CUDA tensors."""
     return LpgFused.apply(raw3, k)
 
 
-lpg_fused.launches = 0  # K1 launches since the last reset; read by chip_smoke.py
-lpg_fused_bwd.launches = 0  # K2 launches since the last reset; read by chip_smoke.py
+def lpg_plane(plane_eq: torch.Tensor, k: int) -> torch.Tensor:
+    """Differentiable LPG: plane (B, h, w, 4) -> depth (B, h*k, w*k) f32; K3
+    forward and K4 backward on CUDA tensors."""
+    return Lpg.apply(plane_eq, k)
+
+
+# launches since the last reset, read by chip_smoke.py
+lpg_fused.launches = 0  # K1
+lpg_fused_bwd.launches = 0  # K2
+lpg_plane.launches = 0  # K3
+lpg_plane_bwd.launches = 0  # K4

@@ -1,0 +1,236 @@
+"""The fused decoder tail on Hopper: the phase-plane LPG maps (K5) and the
+whole full-resolution tail in one kernel (K6), their wrappers and plain
+PyTorch versions.  Counterpart of ``bts_tpu/ops/tail_pallas.py``, with its
+layouts: iconv2 (B, Hh, W2, 64), phase planes (B, 4, Hh, W2) f32, plane
+q = 2*py + pz holding full-resolution pixel (2u+py, 2v+pz).
+
+- :func:`lpg_phase_planes` (K5, ``csrc/lpg_fused.cu``) and
+  :func:`lpg_phase_planes_plain`: the fused LPG head's map as phase planes;
+  ``interleave2x2`` of them is the head's map bit for bit.
+- :func:`fused_tail` (K6, ``csrc/fused_tail.cu``) and
+  :func:`fused_tail_plain`: upconv1 + ELU, the reduction_1x1 chain + sigmoid,
+  the 36-channel concat, iconv1 + ELU and the final conv + sigmoid, in the
+  bf16 rounding schedule of the TPU kernel (see ``fused_tail.cu``).
+- :func:`tail_params` reads K6's weights from a port decoder's modules, in
+  the JAX package's parameter layout (HWIO kernels).
+- A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+  or raises.  Each launch adds one to ``lpg_phase_planes.launches`` or
+  ``fused_tail.launches``.
+
+Inference only, as in the JAX package: no backward.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from bts_tpu_torch.ops import _build
+from bts_tpu_torch.ops.lpg_cuda import _check_raw, _forward, _stream, lpg_fused_plain
+
+CIN = 64  # iconv2 channels: bts_size 512
+N_PARAMS = 44162  # floats of pack_tail_params' buffer (fused_tail.cu's N_PARAMS)
+
+
+def tail_supported(iconv2_shape) -> bool:
+    """The shapes the fused tail takes (a copy of the JAX package's check):
+    (B, Hh, W2, 64) with Hh a multiple of 8, W2 >= 32 and a multiple of 8."""
+    b, hh, w2, cin = iconv2_shape
+    return cin == CIN and hh % 8 == 0 and w2 >= 32 and w2 % 8 == 0
+
+
+def interleave2x2(ph: torch.Tensor) -> torch.Tensor:
+    """(B, 4, Hh, Wh) phase planes -> (B, 2Hh, 2Wh) full resolution."""
+    b, q, hh, wh = ph.shape
+    assert q == 4
+    return ph.reshape(b, 2, 2, hh, wh).permute(0, 3, 1, 4, 2).reshape(b, 2 * hh, 2 * wh)
+
+
+def _split2x2(full: torch.Tensor) -> torch.Tensor:
+    """(B, 2Hh, 2Wh) -> (B, 4, Hh, Wh) phase planes; undoes interleave2x2."""
+    b, h, w = full.shape
+    return full.reshape(b, h // 2, 2, w // 2, 2).permute(0, 2, 4, 1, 3).reshape(b, 4, h // 2, w // 2)
+
+
+def lpg_phase_planes_plain(raw3: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain K5: raw (B, h, w, 3) -> (B, 4, h*k/2, w*k/2) f32, the phase
+    planes of :func:`~bts_tpu_torch.ops.lpg_cuda.lpg_fused_plain`."""
+    return _split2x2(lpg_fused_plain(raw3, k))
+
+
+def lpg_phase_planes(raw3: torch.Tensor, k: int) -> torch.Tensor:
+    """raw (B, h, w, 3), any float dtype and strides -> (B, 4, h*k/2, w*k/2)
+    f32 phase planes of the fused LPG head's map.  A CPU tensor takes
+    :func:`lpg_phase_planes_plain`; a CUDA tensor launches K5 on the current
+    stream and adds one to ``lpg_phase_planes.launches``."""
+    if raw3.device.type == "cpu":
+        return lpg_phase_planes_plain(raw3, k)
+    _check_raw(raw3, k, "lpg_phase_planes")
+    b, h, w, _ = raw3.shape
+    kk = k // 2
+    out, launched = _forward("lpg_phase_forward", raw3, k, "lpg_phase_planes", (b, 4, h * kk, w * kk))
+    lpg_phase_planes.launches += launched
+    return out
+
+
+def tail_params(decoder) -> dict:
+    """K6's weights from a port ``BtsDecoder``, as the JAX branch reads them
+    from the literal modules (upconv1, reduc1x1's three convs, conv1,
+    get_depth): ``{"up"|"r1"|"r2"|"r3"|"i1"|"f": {"kernel": HWIO f32, "bias"}}``."""
+
+    def conv(m):
+        return {"kernel": m.weight.detach().float().permute(2, 3, 1, 0), "bias": m.bias.detach().float()}
+
+    r = decoder.reduc1x1
+    return {"up": conv(decoder.upconv1.conv), "r1": conv(r.conv0), "r2": conv(r.conv1),
+            "r3": conv(r.conv2), "i1": conv(decoder.conv1), "f": conv(decoder.get_depth)}
+
+
+def _bf(t: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 and compute on in f32 (exact)."""
+    return t.to(torch.bfloat16).float()
+
+
+def _elu(x: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's ELU: where(x > 0, x, exp(x) - 1) in f32 (not expm1)."""
+    return torch.where(x > 0, x, torch.exp(x) - 1.0)
+
+
+def _folded_upconv(kernel: torch.Tensor) -> torch.Tensor:
+    """The 3x3 upconv kernel (3, 3, 64, 32) folded over the nearest-2x
+    upsample: K4 = K (*) ones(2, 2), (4, 4, 64, 32), summed in f32 in the JAX
+    package's order and rounded to bf16 once."""
+    k = kernel.float()
+    k4 = torch.zeros((4, 4) + tuple(k.shape[2:]), dtype=torch.float32, device=k.device)
+    for u in (0, 1):
+        for v in (0, 1):
+            k4[u:u + 3, v:v + 3] += k
+    return _bf(k4)
+
+
+def _phase_taps(k4: torch.Tensor, py: int, pz: int) -> torch.Tensor:
+    """The 2x2 taps of phase (py, pz): [dy][dx] = K4[py + 2dy, pz + 2dx]."""
+    return k4[py::2, pz::2]
+
+
+def fused_tail_plain(iconv2, d2ph, d4ph, d8ph, params):
+    """Plain K6: iconv2 (B, Hh, W2, 64), d{2,4,8}ph (B, 4, Hh, W2) f32 ->
+    (final_sig_ph, d1x1_ph), each (B, 4, Hh, W2) f32.
+
+    The TPU kernel's rounding schedule, computed at full resolution: every
+    conv takes bf16 values and sums in f32 (f32 convs on bf16-rounded
+    tensors), the upconv per phase with the folded kernel.  On a card the f32
+    convs must not use TF32 (``models/bts.py::set_float32_precision``)."""
+    b, hh, w2, _ = iconv2.shape
+    x = F.pad(_bf(iconv2).permute(0, 3, 1, 2), (1, 1, 1, 1))  # (B, 64, Hh+2, W2+2)
+    k4 = _folded_upconv(params["up"]["kernel"])
+    bup = _bf(params["up"]["bias"])
+    phases = []
+    for py in (0, 1):
+        for pz in (0, 1):
+            w = _phase_taps(k4, py, pz).permute(3, 2, 0, 1)  # OIHW
+            y = F.conv2d(x[:, :, py:py + hh + 1, pz:pz + w2 + 1], w) + bup[:, None, None]
+            phases.append(_elu(y))
+    c = phases[0].shape[1]
+    up = torch.stack(phases, 1).reshape(b, 2, 2, c, hh, w2).permute(0, 3, 4, 1, 5, 2)
+    up = _bf(up.reshape(b, c, 2 * hh, 2 * w2))  # read only as bf16
+
+    def dense(t, name):  # 1x1 conv of bf16 values, f32 sums, bf16 bias
+        k = _bf(params[name]["kernel"]).reshape(t.shape[1], -1)
+        return torch.einsum("bchw,co->bohw", t, k) + _bf(params[name]["bias"])[:, None, None]
+
+    r = _bf(_elu(dense(up, "r1")))
+    r = _bf(_elu(dense(r, "r2")))
+    k3 = _bf(params["r3"]["kernel"]).reshape(-1)
+    d1x1 = torch.sigmoid((r * k3[:, None, None]).sum(1) + params["r3"]["bias"].float().reshape(()))
+
+    maps = [d1x1] + [interleave2x2(m.float()) for m in (d2ph, d4ph, d8ph)]
+    cat = torch.cat([up] + [_bf(m)[:, None] for m in maps], dim=1)  # (B, 36, H, W)
+    i1 = F.conv2d(cat, _bf(params["i1"]["kernel"]).permute(3, 2, 0, 1), padding=1)
+    i1 = _bf(_elu(i1 + _bf(params["i1"]["bias"])[:, None, None]))
+    logits = F.conv2d(i1, _bf(params["f"]["kernel"]).permute(3, 2, 0, 1), padding=1)[:, 0]
+    final = torch.sigmoid(logits + params["f"]["bias"].float().reshape(()))
+    return _split2x2(final), _split2x2(d1x1)
+
+
+def pack_tail_params(params) -> torch.Tensor:
+    """K6's parameter buffer (f32, N_PARAMS floats) in fused_tail.cu's order:
+    the folded upconv per phase [q][dy][dx][64][32], its bias, r1 [32][16],
+    bias, r2 [16][8], bias, r3 [8], bias, iconv1 [3][3][36][32], bias, final
+    [3][3][32], bias.  Kernels and the upconv / r1 / r2 / iconv1 biases are
+    bf16 values; the r3 and final biases stay f32, as in the TPU kernel."""
+    k4 = _folded_upconv(params["up"]["kernel"])
+    pieces = [torch.stack([_phase_taps(k4, py, pz) for py in (0, 1) for pz in (0, 1)])]
+    for name in ("up", "r1", "r2", "r3", "i1", "f"):
+        if name != "up":
+            pieces.append(_bf(params[name]["kernel"]))
+        last = name in ("r3", "f")
+        pieces.append(params[name]["bias"].float() if last else _bf(params[name]["bias"]))
+    flat = torch.cat([p.reshape(-1) for p in pieces])
+    assert flat.numel() == N_PARAMS, flat.numel()
+    return flat.contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_tail")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fused_tail_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
+    lib.fused_tail_forward.restype = i32
+    lib.fused_tail_num_params.restype = i32
+    lib.fused_tail_error_string.argtypes = [i32]
+    lib.fused_tail_error_string.restype = ctypes.c_char_p
+    if lib.fused_tail_num_params() != N_PARAMS:
+        raise RuntimeError(f"fused_tail.cu takes {lib.fused_tail_num_params()} parameters, not {N_PARAMS}")
+    return lib
+
+
+def fused_tail(iconv2, d2ph, d4ph, d8ph, params):
+    """The fused tail: iconv2 (B, Hh, W2, 64) in any float dtype and layout,
+    d{2,4,8}ph (B, 4, Hh, W2) f32 phase planes (from
+    :func:`lpg_phase_planes`), ``params`` as :func:`tail_params` gives them
+    -> (final_sig_ph, d1x1_ph), each (B, 4, Hh, W2) f32: phase planes of
+    sigmoid(final logits) and of the depth_1x1 head.
+
+    A CPU tensor takes :func:`fused_tail_plain`.  A CUDA tensor launches K6
+    on the current stream and adds one to ``fused_tail.launches``; iconv2 is
+    first copied once into a channels-last bf16 buffer (the decoder's NCHW
+    activation arrives as a permuted view)."""
+    if iconv2.device.type == "cpu":
+        return fused_tail_plain(iconv2, d2ph, d4ph, d8ph, params)
+    b, hh, w2, cin = iconv2.shape
+    if iconv2.device.type != "cuda" or cin != CIN:
+        raise ValueError(f"fused_tail: iconv2 must be (B, Hh, W2, {CIN}) on a card, got "
+                         f"{tuple(iconv2.shape)} on {iconv2.device}")
+    for m in (d2ph, d4ph, d8ph):
+        if m.device != iconv2.device or tuple(m.shape) != (b, 4, hh, w2):
+            raise ValueError(f"fused_tail: maps must be {(b, 4, hh, w2)} on {iconv2.device}, "
+                             f"got {tuple(m.shape)} on {m.device}")
+    if (hh + 7) // 8 > 65535 or b > 65535:
+        raise ValueError(f"fused_tail: grid too large for (B={b}, Hh={hh})")
+    # one copy into channels-last bf16 (Tensor.to would alias a bf16 view
+    # whose strides merely look contiguous to it)
+    x = torch.empty((b, hh, w2, cin), dtype=torch.bfloat16, device=iconv2.device).copy_(iconv2)
+    maps = [m.float().contiguous() for m in (d2ph, d4ph, d8ph)]
+    prm = pack_tail_params(params).to(iconv2.device)
+    fin = torch.empty((b, 4, hh, w2), dtype=torch.float32, device=x.device)
+    d1 = torch.empty_like(fin)
+    if fin.numel() == 0:
+        return fin, d1
+    with torch.cuda.device(x.device):
+        err = _lib().fused_tail_forward(
+            x.data_ptr(), *(m.data_ptr() for m in maps), prm.data_ptr(), fin.data_ptr(),
+            d1.data_ptr(), b, hh, w2, _stream(x.device),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_tail kernel launch failed: {_lib().fused_tail_error_string(err).decode()}")
+    fused_tail.launches += 1
+    return fin, d1
+
+
+# launches since the last reset, read by chip_smoke.py
+lpg_phase_planes.launches = 0  # K5
+fused_tail.launches = 0  # K6

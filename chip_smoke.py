@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving paths (the literal and the fused decoder
+tail), its training path and its public LPG op once on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py        # from the repo root; one CUDA card, nvcc
 
 Phases, one JSON line each, then the result:
 
 1. device     - torch and CUDA versions, the card's name and power limit.
-2. build      - builds every kernel of both paths from csrc/ (nvcc, sm_90a):
-                K1 (the fused LPG head forward) and K2 (its backward).
+2. build      - builds both sources of csrc/ (nvcc, sm_90a), one nvcc each,
+                started together: lpg_fused.cu (K1 the fused LPG head
+                forward, K2 its backward, K3/K4 the public LPG op's forward
+                and backward, K5 the head as phase planes) and fused_tail.cu
+                (K6 the fused decoder tail).
 3. kernel     - K1 against its plain PyTorch version at the three shapes of
                 a 352x1216 forward and one ragged B=2 shape; rule rtol 2e-5,
                 atol 2e-6*max|ref| on pixels with |denominator| >= 1e-3 (the
@@ -21,14 +25,35 @@ Phases, one JSON line each, then the result:
                 atol 2e-5*max|ref| on cells whose k x k denominators all
                 have |den| >= 1e-3 (excluded cells counted).  K1 at the same
                 three shapes.  Times as phase 3, and each call's bound.
-5. slice      - serving: create_model + bts_test.predict, DenseNet-161,
+5. kernel_lpg - K3 against its plain version at the three serving head
+                shapes (planes from plane_from_spherical, max_depth 80) and
+                the ragged shape, K1's rule; K4 at the three config-4 head
+                shapes with f32 and bf16 planes, K2's rule.  Times and
+                bounds.  Then the op path: local_planar_guidance forward and
+                backward at the serving heads, 3 K3 + 3 K4 launches.
+6. tail       - K5 against its plain version and against K1 interleaved,
+                bit for bit, at the three serving shapes; K6 against its
+                plain version at 352x1216 b1 (B=1, Hh=176, W2=608) and at a
+                ragged B=2, Hh=16, W2=152: max and mean abs error and pixels
+                above 1e-4, rule mean <= 2e-5, max <= 5e-2, share above 1e-4
+                <= 1%.  Times (K6 also alone, without the wrapper's copy to
+                channels-last bf16 and weight packing) and bounds (K6 against
+                the bf16 tensor-core rate, with the f32 CUDA-core floor).
+7. slice      - serving: create_model + bts_test.predict, DenseNet-161,
                 bts_size 512, 352x1216, batch 1, KITTI focal, seeded
                 weights, float32 and bfloat16; 3 K1 launches per forward;
                 outputs finite where the LPG denominators are non-zero;
                 depth in (0, max_depth]; the kernel path against
                 use_pallas="never"; the f32 model against the same weights on
                 the CPU at 64x96; median ms per forward and peak memory.
-6. train      - config 4 (DenseNet-161, bts_size 512, KITTI 352x1216 uint8
+8. slice_tail - the same serving with --fused_tail always: 3 K5 + 1 K6 and
+                no K1 per forward; finite outputs, depth in (0, max_depth];
+                against use_pallas="never" on the fused path (maps by K1's
+                rule, d1x1 and final by K6's); against the literal tail
+                (fused_tail="auto": maps <= 1e-5, d1x1 <= 5e-3, final
+                <= 5e-3*max_depth); 20 forwards of each path in turns
+                (median, q1, q3) and each path's peak memory.
+9. train      - config 4 (DenseNet-161, bts_size 512, KITTI 352x1216 uint8
                 frames augmented to 352x704 with rotation <= 1 degree, b16,
                 bfloat16, remat 'layer', AdamW + poly decay) through
                 create_model + training.Trainer on seeded synthetic data
@@ -44,11 +69,14 @@ Phases, one JSON line each, then the result:
                 (kernel, use_pallas="never") in turns, with each path's peak
                 memory; a torch.profiler window of 2 steps for the device
                 busy share and the top kernels.
-7. result     - {"kernels": [...]} (launches: both main paths' counts; ms,
-                plain_ms, bound_ms: the three config-4 head shapes with bf16
-                raw, per training step; max_abs_err: f32 at those shapes),
-                the nvidia-smi line, and the contract line {"ok": true, ...}
-                last.
+10. result    - {"kernels": [...]}: all six kernels, launches by main path
+                (serve, serve_tail, train, op; each path's counts set to 0
+                just before it runs), and ms, plain_ms, bound_ms per the unit
+                named in "per" (K1, K2: a training step's three heads, bf16
+                raw; K3: the three serving heads; K4: the three config-4
+                heads, bf16 plane; K5: a fused-tail forward's three heads;
+                K6: one 352x1216 forward), the nvidia-smi line, and the
+                contract line {"ok": true, ...} last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 Nothing falls back to the CPU or to the plain version.  It imports no JAX.
@@ -61,6 +89,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -68,11 +97,20 @@ import torch
 SLICE_SHAPES = [(1, 44, 152, 8), (1, 88, 304, 4), (1, 176, 608, 2)]  # (B, h, w, k) at 352x1216
 TRAIN_SHAPES = [(16, 44, 88, 8), (16, 88, 176, 4), (16, 176, 352, 2)]  # b16 at 352x704
 RAGGED_SHAPE = (2, 13, 37, 8)  # W = 296, not a multiple of 32
+TAIL_SHAPES = [(1, 176, 608), (2, 16, 152)]  # (B, Hh, W2): 352x1216 b1, and a ragged width
 RTOL, ATOL_SCALE, DENOM_MIN = 2e-5, 2e-6, 1e-3
 GRAD_RTOL, GRAD_ATOL_SCALE = 2e-4, 2e-5
-KERNEL_SOURCE = "bts_tpu_torch/csrc/lpg_fused.cu"
-K1_REPLACES = "bts_tpu/ops/lpg_pallas.py:376"  # _fused_fwd_kernel, via _fused_fwd_call :443
-K2_REPLACES = "bts_tpu/ops/lpg_pallas.py:393"  # _fused_bwd_kernel, via _fused_bwd_call :463
+TAIL_MEAN, TAIL_MAX, TAIL_OFF_SHARE = 2e-5, 5e-2, 0.01  # K6's rule (tests/test_torch_port_tail.py)
+SOURCES = {"lpg_fused": "bts_tpu_torch/csrc/lpg_fused.cu", "fused_tail": "bts_tpu_torch/csrc/fused_tail.cu"}
+# (wrapper, key, library, the TPU kernel it replaces: kernel body, with the pallas_call that launches it)
+KERNELS = [
+    ("lpg_fused", "K1", "lpg_fused", "bts_tpu/ops/lpg_pallas.py:376"),  # _fused_fwd_kernel, _fused_fwd_call :443
+    ("lpg_fused_bwd", "K2", "lpg_fused", "bts_tpu/ops/lpg_pallas.py:393"),  # _fused_bwd_kernel, _fused_bwd_call :463
+    ("lpg_plane", "K3", "lpg_fused", "bts_tpu/ops/lpg_pallas.py:113"),  # _fwd_kernel, _fwd_call :185
+    ("lpg_plane_bwd", "K4", "lpg_fused", "bts_tpu/ops/lpg_pallas.py:125"),  # _bwd_kernel, _bwd_call :206
+    ("lpg_phase_planes", "K5", "lpg_fused", "bts_tpu/ops/tail_pallas.py:127"),  # _phase_lpg_kernel, call :153
+    ("fused_tail", "K6", "fused_tail", "bts_tpu/ops/tail_pallas.py:208"),  # _tail_kernel, fused_tail :402
+]
 H, W, FOCAL, MAX_DEPTH = 352, 1216, 721.5377, 80.0
 TRAIN_H, TRAIN_W, TRAIN_B = 352, 704, 16
 TIMED_FORWARDS = 20
@@ -80,9 +118,14 @@ WARMUP_STEPS, TIMED_STEPS = 2, 10
 TURNS = 8  # training steps of each path in the kernel-vs-never comparison
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # operations counted per full-resolution pixel (mul, add, div); the per-cell
 # transform is a few tens of operations per k*k pixels and is left out
 K1_OPS_PER_PIXEL, K2_OPS_PER_PIXEL = 5, 10
+# K6: flops per full-resolution pixel, all dots of bf16 operands: upconv
+# 4*64*32*2, the reduction chain (32*16 + 16*8 + 8)*2, iconv1 9*36*32*2,
+# the final conv 9*32*2
+K6_FLOPS_PER_PIXEL = 4 * 64 * 32 * 2 + (32 * 16 + 16 * 8 + 8) * 2 + 9 * 36 * 32 * 2 + 9 * 32 * 2
 
 
 def emit(obj) -> None:
@@ -149,10 +192,11 @@ def timings(fn, plain_fn) -> dict:
     return row
 
 
-def bound(nbytes: int, ops: int) -> dict:
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, whichever is larger."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    operations over the rate for their type (f32 unless given), whichever
+    is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -173,12 +217,11 @@ def compare_lpg(out, ref, den) -> dict:
     }
 
 
-def compare_grad(out, ref, raw, k, rtol=GRAD_RTOL) -> dict:
-    """K2's rule on cells whose k x k denominators all have |den| >= 1e-3."""
-    from bts_tpu_torch.ops.lpg_cuda import fused_denominator
-
-    b, h, w, _ = raw.shape
-    keep = (fused_denominator(raw, k).reshape(b, h, k, w, k).abs() >= DENOM_MIN).all(4).all(2)
+def compare_grad(out, ref, den, k, rtol=GRAD_RTOL) -> dict:
+    """K2's and K4's rule on cells whose k x k denominators (``den``, full
+    resolution) all have |den| >= 1e-3."""
+    b, h, w = out.shape[:3]
+    keep = (den.reshape(b, h, k, w, k).abs() >= DENOM_MIN).all(4).all(2)
     out, ref = out.float()[keep], ref.float()[keep]
     diff = (out - ref).abs()
     scale = ref.abs().max().item()
@@ -233,7 +276,8 @@ def phase_kernel_bwd(card: str) -> dict:
             check(out.dtype == dtype and out.shape == raw.shape, f"K2 output {out.dtype} {out.shape}")
             check(out.permute(0, 3, 1, 2).is_contiguous(), "K2 output is not NCHW memory")
             # bf16: both round one f32 value, so they may differ by one bf16 step
-            rule = compare_grad(out, ref, raw, k, rtol=GRAD_RTOL if dtype == torch.float32 else 2**-7)
+            rule = compare_grad(out, ref, fused_denominator(raw, k), k,
+                                rtol=GRAD_RTOL if dtype == torch.float32 else 2**-7)
             row = {"kernel": "K2", "shape": [b, h, w, 3], "k": k, "raw_dtype": str(dtype)[6:]}
             row.update(rule)
             check(rule["within_rule"], f"K2 disagrees with plain at {row}")
@@ -265,6 +309,177 @@ def phase_kernel_bwd(card: str) -> dict:
           "rule": f"K2: rtol {GRAD_RTOL} (bf16: 2^-7), atol {GRAD_ATOL_SCALE}*max|ref| on cells "
                   f"with every |den|>={DENOM_MIN}; K1: rtol {RTOL}, atol {ATOL_SCALE}*max|ref|",
           "shapes": rows, "per_training_step": total})
+    return total
+
+def plane_denominator(plane, k):
+    """n1*u + n2*v + n3 of the LPG of ``plane`` (B, h, w, 4), at full resolution."""
+    from bts_tpu_torch.ops.lpg_cuda import _patch_coords
+
+    b, h, w, _ = plane.shape
+    p = plane.float()
+    off = _patch_coords(k, plane.device)
+    den = (p[..., 0][:, :, None, :, None] * off.view(1, 1, 1, 1, k)
+           + p[..., 1][:, :, None, :, None] * off.view(1, 1, k, 1, 1) + p[..., 2][:, :, None, :, None])
+    return den.reshape(b, h * k, w * k)
+
+
+def _plane(b, h, w, k, dtype=torch.float32):
+    from bts_tpu_torch.ops.lpg import plane_from_spherical
+
+    return plane_from_spherical(_raw(b, h, w, k), MAX_DEPTH).to(dtype)
+
+
+def _add(total: dict, row: dict) -> None:
+    for key in ("ms", "plain_ms", "bound_ms"):
+        total[key] = total.get(key, 0.0) + row[key]
+    total["bound_by"] = row["bound_by"]
+
+
+def phase_kernel_lpg(card: str):
+    """K3 and K4, the public LPG op's kernels: each against its plain
+    version, then the op path (forward and backward through
+    local_planar_guidance at the three serving heads) with its launches."""
+    from bts_tpu_torch.ops.lpg import local_planar_guidance
+    from bts_tpu_torch.ops.lpg_cuda import (
+        lpg_plane, lpg_plane_bwd, lpg_plane_bwd_plain, lpg_plane_fwd, lpg_plane_plain,
+    )
+
+    rows, total = [], {"K3": {"max_abs_err": 0.0}, "K4": {"max_abs_err": 0.0}}
+    for b, h, w, k in SLICE_SHAPES + [RAGGED_SHAPE]:
+        plane = _plane(b, h, w, k)
+        out, ref = lpg_plane_fwd(plane, k), lpg_plane_plain(plane, k)
+        torch.cuda.synchronize()
+        row = {"kernel": "K3", "shape": [b, h, w, 4], "k": k, "card": card}
+        row.update(compare_lpg(out, ref, plane_denominator(plane, k)))
+        check(row["within_rule"], f"K3 disagrees with plain at {row}")
+        row.update(timings(lambda: lpg_plane_fwd(plane, k), lambda: lpg_plane_plain(plane, k)))
+        row.update(bound(16 * b * h * w + 4 * b * h * w * k * k, K1_OPS_PER_PIXEL * b * h * w * k * k))
+        rows.append(row)
+        if (b, h, w, k) in SLICE_SHAPES:
+            _add(total["K3"], row)
+            total["K3"]["max_abs_err"] = max(total["K3"]["max_abs_err"], row["max_abs_err"])
+    for b, h, w, k in TRAIN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            plane = _plane(b, h, w, k, dtype)
+            g = torch.from_numpy(np.random.default_rng(k).standard_normal(
+                (b, h * k, w * k), dtype=np.float32)).cuda()
+            out, ref = lpg_plane_bwd(plane, g, k), lpg_plane_bwd_plain(plane, g, k)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype and out.shape == plane.shape, f"K4 output {out.dtype} {out.shape}")
+            row = {"kernel": "K4", "shape": [b, h, w, 4], "k": k, "plane_dtype": str(dtype)[6:], "card": card}
+            row.update(compare_grad(out, ref, plane_denominator(plane, k), k,
+                                    rtol=GRAD_RTOL if dtype == torch.float32 else 2**-7))
+            check(row["within_rule"], f"K4 disagrees with plain at {row}")
+            row.update(timings(lambda: lpg_plane_bwd(plane, g, k), lambda: lpg_plane_bwd_plain(plane, g, k)))
+            row.update(bound(4 * b * h * w * k * k + 4 * plane.element_size() * b * h * w,
+                             K2_OPS_PER_PIXEL * b * h * w * k * k))
+            rows.append(row)
+            if dtype == torch.bfloat16:
+                _add(total["K4"], row)
+            else:
+                total["K4"]["max_abs_err"] = max(total["K4"]["max_abs_err"], row["max_abs_err"])
+
+    # the op path: every count to 0, the public op forward and backward
+    lpg_plane.launches, lpg_plane_bwd.launches = 0, 0
+    for b, h, w, k in SLICE_SHAPES:
+        plane = _plane(b, h, w, k).requires_grad_()
+        out = local_planar_guidance(plane, k)
+        g = torch.randn_like(out)
+        (out * g).sum().backward()
+        check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(plane.grad).all()), "op path not finite")
+    torch.cuda.synchronize()
+    launches = {"lpg_plane": lpg_plane.launches, "lpg_plane_bwd": lpg_plane_bwd.launches}
+    check(launches == {"lpg_plane": 3, "lpg_plane_bwd": 3}, f"op path launches {launches}")
+    emit({"phase": "kernel_lpg",
+          "rule": f"K3: rtol {RTOL}, atol {ATOL_SCALE}*max|ref|, |den|>={DENOM_MIN}; K4: rtol {GRAD_RTOL} "
+                  f"(bf16: 2^-7), atol {GRAD_ATOL_SCALE}*max|ref| on cells with every |den|>={DENOM_MIN}",
+          "shapes": rows, "op_path_launches": launches, "per_op": total})
+    return total, launches
+
+
+def _tail_inputs(b, hh, w2, seed=0):
+    """Seeded K6 inputs at (B, Hh, W2): iconv2 as the decoder's NCHW view,
+    the three maps from K5, and random tail weights (the CPU tests' scale)."""
+    from bts_tpu_torch.ops import tail_cuda
+
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape):
+        return (torch.randn(*shape, generator=g) * 0.3).cuda()
+
+    shapes = {"up": (3, 3, 64, 32), "r1": (1, 1, 32, 16), "r2": (1, 1, 16, 8),
+              "r3": (1, 1, 8, 1), "i1": (3, 3, 36, 32), "f": (3, 3, 32, 1)}
+    params = {n: {"kernel": t(*sh), "bias": t(sh[-1])} for n, sh in shapes.items()}
+    iconv2 = t(b, 64, hh, w2).to(torch.bfloat16).permute(0, 2, 3, 1)
+    maps = [tail_cuda.lpg_phase_planes_plain(_raw(b, 2 * hh // k, 2 * w2 // k, k), k) for k in (2, 4, 8)]
+    return iconv2, maps, params
+
+
+def tail_gap(out, ref) -> dict:
+    e = (out - ref).abs()
+    return {"max_abs_err": e.max().item(), "mean_abs_err": e.mean().item(),
+            "pixels_above_1e-4": int((e > 1e-4).sum()), "pixels": e.numel(),
+            "within_rule": bool(torch.isfinite(out).all()) and e.mean().item() <= TAIL_MEAN
+            and e.max().item() <= TAIL_MAX and (e > 1e-4).float().mean().item() <= TAIL_OFF_SHARE}
+
+
+def phase_tail(card: str) -> dict:
+    """K5 against its plain version and bit-equal to K1 interleaved; K6
+    against its plain version; times and bounds of each call."""
+    from bts_tpu_torch.models.bts import set_float32_precision
+    from bts_tpu_torch.ops import tail_cuda
+    from bts_tpu_torch.ops.lpg_cuda import lpg_fused_fwd
+
+    set_float32_precision()  # the plain tail's f32 convs without TF32
+    rows, total = [], {"K5": {"max_abs_err": 0.0}, "K6": {}}
+    for b, h, w, k in SLICE_SHAPES:
+        raw = _raw(b, h, w, k)
+        ph, plain, full = tail_cuda.lpg_phase_planes(raw, k), tail_cuda.lpg_phase_planes_plain(raw, k), lpg_fused_fwd(raw, k)
+        torch.cuda.synchronize()
+        row = {"kernel": "K5", "shape": [b, h, w, 3], "k": k, "out": list(ph.shape), "card": card,
+               "equal_to_plain": torch.equal(ph, plain),
+               "equal_to_k1_interleaved": torch.equal(tail_cuda.interleave2x2(ph), full),
+               "max_abs_err": (ph - plain).abs().max().item()}
+        check(row["equal_to_plain"] and row["equal_to_k1_interleaved"], f"K5 not bit-equal at {row}")
+        row.update(timings(lambda: tail_cuda.lpg_phase_planes(raw, k), lambda: tail_cuda.lpg_phase_planes_plain(raw, k)))
+        row.update(bound(12 * b * h * w + 4 * b * h * w * k * k, K1_OPS_PER_PIXEL * b * h * w * k * k))
+        rows.append(row)
+        _add(total["K5"], row)
+        total["K5"]["max_abs_err"] = max(total["K5"]["max_abs_err"], row["max_abs_err"])
+    for b, hh, w2 in TAIL_SHAPES:
+        iconv2, maps, params = _tail_inputs(b, hh, w2)
+        fin, d1 = tail_cuda.fused_tail(iconv2, *maps, params)
+        rfin, rd1 = tail_cuda.fused_tail_plain(iconv2, *maps, params)
+        torch.cuda.synchronize()
+        row = {"kernel": "K6", "shape": [b, hh, w2, 64], "card": card,
+               "final": tail_gap(fin, rfin), "d1x1": tail_gap(d1, rd1)}
+        check(row["final"]["within_rule"] and row["d1x1"]["within_rule"], f"K6 disagrees with plain at {row}")
+        row["max_abs_err"] = max(row["final"]["max_abs_err"], row["d1x1"]["max_abs_err"])
+        row.update(timings(lambda: tail_cuda.fused_tail(iconv2, *maps, params),
+                           lambda: tail_cuda.fused_tail_plain(iconv2, *maps, params)))
+        # the kernel alone, on iconv2 already channels-last bf16 and packed weights
+        x = iconv2.contiguous()
+        prm, fo, do = tail_cuda.pack_tail_params(params), torch.empty_like(fin), torch.empty_like(d1)
+        lib, stream = tail_cuda._lib(), torch.cuda.current_stream().cuda_stream
+
+        def kernel_only():
+            err = lib.fused_tail_forward(x.data_ptr(), *(m.data_ptr() for m in maps), prm.data_ptr(),
+                                         fo.data_ptr(), do.data_ptr(), b, hh, w2, stream)
+            check(err == 0, f"K6 launch error {err}")
+
+        row["kernel_only_ms"] = device_median_ms(kernel_only, call_median_ms(kernel_only))
+        torch.cuda.synchronize()
+        check(torch.equal(fo, fin) and torch.equal(do, d1), "K6 alone differs from the wrapper")
+        pixels = 4 * b * hh * w2
+        row.update(bound(2 * b * hh * w2 * 64 + 3 * 4 * pixels + 2 * 4 * pixels,
+                         K6_FLOPS_PER_PIXEL * pixels, BF16_OPS_PER_S))
+        row["cuda_core_f32_floor_ms"] = K6_FLOPS_PER_PIXEL * pixels / F32_OPS_PER_S * 1e3
+        rows.append(row)
+        if (b, hh, w2) == TAIL_SHAPES[0]:
+            total["K6"] = {key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    emit({"phase": "tail", "rule": f"K5: bit-equal to its plain version and to K1 interleaved; K6: mean abs "
+          f"<= {TAIL_MEAN}, max abs <= {TAIL_MAX}, share above 1e-4 <= {TAIL_OFF_SHARE}",
+          "shapes": rows, "per_forward": total})
     return total
 
 
@@ -380,6 +595,115 @@ def phase_slice(card: str) -> int:
             q = statistics.quantiles(t, n=4)
             rec[f"{path}_ms_per_forward"] = {"median": statistics.median(t), "q1": q[0], "q3": q[2],
                                              "n": len(t)}
+        emit(rec)
+    del models
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_slice_tail(card: str) -> dict:
+    """Serving with --fused_tail always: 3 K5 + 1 K6 and no K1 per forward,
+    against use_pallas="never" on the same path and against the literal tail
+    (fused_tail="auto"); both paths timed in turns."""
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.ops import tail_cuda
+    from bts_tpu_torch.ops.lpg_cuda import fused_denominator, lpg_fused
+
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.integers(0, 256, (1, H, W, 3), dtype=np.uint8),
+             "focal": np.array([FOCAL], np.float32)}
+    focal_scale = FOCAL / 715.0873
+    cfgs = {dt: Config(mode="test", encoder="densenet161_bts", bts_size=512, max_depth=MAX_DEPTH,
+                       dataset="kitti", input_height=H, input_width=W, compute_dtype=dt, seed=0,
+                       fused_tail="always")
+            for dt in ("float32", "bfloat16")}
+    models = {dt: create_model(cfg, "cuda") for dt, cfg in cfgs.items()}
+    heads = {}
+    for model in models.values():
+        for name in ("reduc8x8", "reduc4x4", "reduc2x2"):
+            getattr(model.decoder, name).register_forward_hook(
+                lambda mod, args, out, name=name: heads.__setitem__(name, out))
+    counters = {"lpg_fused": lpg_fused, "lpg_phase_planes": tail_cuda.lpg_phase_planes,
+                "fused_tail": tail_cuda.fused_tail}
+
+    def counts():
+        return {n: c.launches for n, c in counters.items()}
+
+    # the main path: every count to 0, one forward per compute dtype
+    for c in counters.values():
+        c.launches = 0
+    outs = {}
+    for dt in cfgs:
+        before = counts()
+        outs[dt] = (_forward(cfgs[dt], models[dt], batch), dict(heads))
+        n = {k: v - before[k] for k, v in counts().items()}
+        check(n == {"lpg_fused": 0, "lpg_phase_planes": 3, "fused_tail": 1}, f"{dt}: launches {n}")
+    launches = counts()
+
+    for dt, cfg in cfgs.items():
+        model, (fused, raw_heads) = models[dt], outs[dt]
+        rec = {"phase": "slice_tail", "compute_dtype": dt, "card": card,
+               "shapes": [list(o.shape) for o in fused]}
+        check(all(tuple(o.shape) == (1, 1, H, W) for o in fused), f"{dt}: shapes {rec['shapes']}")
+        dens = [fused_denominator(raw_heads[n].permute(0, 2, 3, 1), k)
+                for n, k in (("reduc8x8", 8), ("reduc4x4", 4), ("reduc2x2", 2))]
+        for i, den in enumerate(dens):
+            check(bool(torch.isfinite(fused[i][:, 0][den != 0]).all()), f"{dt}: LPG map {i} not finite")
+        check(all(bool(torch.isfinite(o).all()) for o in fused[3:]), f"{dt}: non-finite depth")
+        depth = fused[4] / focal_scale
+        rec["final_depth_min_max"] = [depth.min().item(), depth.max().item()]
+        check(0 < rec["final_depth_min_max"][0] and rec["final_depth_min_max"][1] <= MAX_DEPTH,
+              f"{dt}: depth range {rec['final_depth_min_max']}")
+
+        # the same path through the plain versions (use_pallas="never")
+        model.decoder.use_pallas = "never"
+        before = counts()
+        plain = _forward(cfg, model, batch)
+        check(counts() == before, "use_pallas='never' launched a kernel")
+        model.decoder.use_pallas = cfg.use_pallas
+        rec["maps_kernel_vs_never"] = [dict(compare_lpg(fused[i][:, 0], plain[i][:, 0], dens[i]), k=k)
+                                       for i, k in enumerate((8, 4, 2))]
+        check(all(r["within_rule"] for r in rec["maps_kernel_vs_never"]), f"{dt}: maps vs never")
+        rec["d1x1_kernel_vs_never"] = tail_gap(fused[3], plain[3])
+        rec["final_kernel_vs_never"] = tail_gap(fused[4] / (MAX_DEPTH * focal_scale),
+                                                plain[4] / (MAX_DEPTH * focal_scale))
+        check(rec["d1x1_kernel_vs_never"]["within_rule"] and rec["final_kernel_vs_never"]["within_rule"],
+              f"{dt}: tail kernel vs never {rec['d1x1_kernel_vs_never']} {rec['final_kernel_vs_never']}")
+
+        # against the literal tail (tests/test_tail.py's rule, scaled to max_depth)
+        model.decoder.fused_tail = "auto"
+        literal = _forward(cfg, model, batch)
+        model.decoder.fused_tail = "always"
+        gaps = [(a - b).abs().max().item() for a, b in zip(fused, literal)]
+        gaps[4] /= focal_scale
+        limits = [1e-5, 1e-5, 1e-5, 5e-3, 5e-3 * MAX_DEPTH]
+        rec["fused_vs_literal_max_abs"] = dict(zip(("d8", "d4", "d2", "d1x1", "final"), gaps))
+        rec["fused_vs_literal_limits"] = limits
+        emit({"phase": "slice_tail_check", "compute_dtype": dt, **{k: rec[k] for k in (
+            "final_depth_min_max", "d1x1_kernel_vs_never", "final_kernel_vs_never", "fused_vs_literal_max_abs")}})
+        check(all(g <= lim for g, lim in zip(gaps, limits)), f"{dt}: fused vs literal {gaps}")
+
+        # both tails in turns (fused, literal, literal, fused, ...), and each one's peak memory
+        setting = {"fused": "always", "literal": "auto"}
+        times = {"fused": [], "literal": []}
+        for path in setting:
+            model.decoder.fused_tail = setting[path]
+            for _ in range(3):
+                _forward(cfg, model, batch)
+            torch.cuda.reset_peak_memory_stats()
+            _forward(cfg, model, batch)
+            rec[f"{path}_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        for i in range(TIMED_FORWARDS):
+            for path in ("fused", "literal") if i % 2 == 0 else ("literal", "fused"):
+                model.decoder.fused_tail = setting[path]
+                t0 = time.perf_counter()
+                _forward(cfg, model, batch)
+                times[path].append((time.perf_counter() - t0) * 1e3)
+        model.decoder.fused_tail = "always"
+        for path, t in times.items():
+            q = statistics.quantiles(t, n=4)
+            rec[f"{path}_ms_per_forward"] = {"median": statistics.median(t), "q1": q[0], "q3": q[2], "n": len(t)}
         emit(rec)
     del models
     torch.cuda.empty_cache()
@@ -568,35 +892,57 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
-    from bts_tpu_torch.ops import _build, lpg_cuda  # fails outside a checkout of the repo
+    from bts_tpu_torch.ops import _build, lpg_cuda, tail_cuda  # fails outside a checkout of the repo
 
     card = card_line()
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(), "card": card})
-    built = _build.build("lpg_fused")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, started together
+        built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
     lpg_cuda._lib()
-    emit({"phase": "build", "source": KERNEL_SOURCE, "kernels": ["lpg_fused", "lpg_fused_bwd"],
-          "seconds": built.seconds,
-          "ptxas": [l.strip() for l in built.log.splitlines() if "registers" in l or "spill" in l]})
+    tail_cuda._lib()
+    emit({"phase": "build", "sources": SOURCES, "kernels": {key: name for name, key, _, _ in KERNELS},
+          "seconds": {n: b.seconds for n, b in built.items()},
+          "ptxas": {n: [l.strip() for l in b.log.splitlines() if "registers" in l or "spill" in l]
+                    for n, b in built.items()}})
 
     phase_kernel(card)
     per_step = phase_kernel_bwd(card)
+    per_op, op_launches = phase_kernel_lpg(card)
+    per_tail = phase_tail(card)
     serve_launches = phase_slice(card)
+    tail_launches = phase_slice_tail(card)
     train_launches = phase_train(card)
-    launches = {"lpg_fused": serve_launches + train_launches["lpg_fused"],
-                "lpg_fused_bwd": train_launches["lpg_fused_bwd"]}
-    check(all(n > 0 for n in launches.values()), f"a kernel of the main paths never launched: {launches}")
+    by_path = {
+        "lpg_fused": {"serve": serve_launches, "serve_tail": tail_launches["lpg_fused"],
+                      "train": train_launches["lpg_fused"], "op": 0},
+        "lpg_fused_bwd": {"serve": 0, "serve_tail": 0, "train": train_launches["lpg_fused_bwd"], "op": 0},
+        "lpg_plane": {"serve": 0, "serve_tail": 0, "train": 0, "op": op_launches["lpg_plane"]},
+        "lpg_plane_bwd": {"serve": 0, "serve_tail": 0, "train": 0, "op": op_launches["lpg_plane_bwd"]},
+        "lpg_phase_planes": {"serve": 0, "serve_tail": tail_launches["lpg_phase_planes"], "train": 0, "op": 0},
+        "fused_tail": {"serve": 0, "serve_tail": tail_launches["fused_tail"], "train": 0, "op": 0},
+    }
+    check(all(sum(p.values()) > 0 for p in by_path.values()), f"a kernel of the main paths never launched: {by_path}")
+    numbers = {
+        "K1": dict(per_step["K1"]["bfloat16"], max_abs_err=per_step["K1"]["float32"]["max_abs_err"],
+                   per="training step: the three config-4 heads, bf16 raw"),
+        "K2": dict(per_step["K2"]["bfloat16"], max_abs_err=per_step["K2"]["float32"]["max_abs_err"],
+                   per="training step: the three config-4 heads, bf16 raw"),
+        "K3": dict(per_op["K3"], per="public op forward: the three 352x1216 b1 heads, f32 plane"),
+        "K4": dict(per_op["K4"], per="public op backward: the three config-4 heads, bf16 plane "
+                                     "(max_abs_err: f32 plane)"),
+        "K5": dict(per_tail["K5"], per="fused-tail forward: the three 352x1216 b1 heads"),
+        "K6": dict(per_tail["K6"], per="fused-tail forward, 352x1216 b1 (ms: copy to channels-last bf16, "
+                                       "weight packing and the kernel)"),
+    }
     result = []
-    for name, key, replaces in (("lpg_fused", "K1", K1_REPLACES), ("lpg_fused_bwd", "K2", K2_REPLACES)):
-        t = per_step[key]["bfloat16"]
-        result.append({"name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
-                       "launches": launches[name],
-                       "launches_by_path": {"serve": serve_launches if key == "K1" else 0,
-                                            "train": train_launches[name]},
-                       "max_abs_err": per_step[key]["float32"]["max_abs_err"],
-                       "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                       "bound_by": t["bound_by"], "library_ms": None,
-                       "per": "training step: the three config-4 heads, bf16 raw"})
+    for name, key, lib, replaces in KERNELS:
+        t = numbers[key]
+        result.append({"name": name, "route": "cuda", "source": SOURCES[lib], "replaces": replaces,
+                       "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+                       "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                       "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+                       "per": t["per"]})
     emit({"kernels": result})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
-"""The fused LPG head's CUDA kernels (csrc/lpg_fused.cu) on the card: the
-forward K1 and the backward K2.
+"""The port's CUDA kernels on the card: the fused LPG head's forward K1 and
+backward K2, the public LPG op's forward K3 and backward K4, the phase-plane
+head K5 (csrc/lpg_fused.cu) and the fused decoder tail K6
+(csrc/fused_tail.cu), each against its plain version.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: a CUDA
 kernel has no CPU mode.  On a machine with a card (and ``nvcc``):
@@ -13,13 +15,17 @@ sin/cos grow without bound).  K2's rule is the gradient rule of
 tests/test_ops.py: rtol 2e-4, atol 2e-5*max|ref|, on cells whose k x k
 denominators are all at least 1e-3 in magnitude (K2 sums the patch in
 another order than the plain version, and the gradient grows as 1/den^2).
+K3 and K4 take the rules of K1 and K2.  K5 equals K1 interleaved, bit for
+bit.  K6 holds tests/test_torch_port_tail.py's rule against its plain
+version: mean abs error <= 2e-5, max <= 5e-2, at most 1% of pixels off by
+more than 1e-4.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from bts_tpu_torch.ops import lpg_cuda
+from bts_tpu_torch.ops import lpg_cuda, tail_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -118,3 +124,105 @@ def test_kernels_refuse_bad_k(card):
         lpg_cuda.lpg_fused(raw, 3)
     with pytest.raises(ValueError, match="k must be"):
         lpg_cuda.lpg_fused_bwd(raw, torch.zeros(1, 12, 12, device=card), 3)
+
+
+def _plane(card, b, h, w, seed=0, dtype=torch.float32):
+    from bts_tpu_torch.ops.lpg import plane_from_spherical
+
+    return plane_from_spherical(_raw(card, b, h, w, seed), 80.0).to(dtype)
+
+
+def _plane_den(plane, k):
+    """The denominators n1*u + n2*v + n3 of the LPG of ``plane``, (B, h, k, w, k)."""
+    p = plane.float()
+    off = lpg_cuda._patch_coords(k, plane.device)
+    return (p[..., 0][:, :, None, :, None] * off.view(1, 1, 1, 1, k)
+            + p[..., 1][:, :, None, :, None] * off.view(1, 1, k, 1, 1) + p[..., 2][:, :, None, :, None])
+
+
+@pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (2, 176, 608, 1), (8, 13, 37, 2)])
+def test_lpg_plane_kernels_match_plain(card, k, h, w, b, monkeypatch):
+    """K3 and K4 through the public op's autograd Function, f32 plane."""
+    for fn in (lpg_cuda.lpg_plane, lpg_cuda.lpg_plane_bwd):
+        monkeypatch.setattr(fn, "launches", 0)
+    plane = _plane(card, b, h, w, seed=k).requires_grad_()
+    out = lpg_cuda.lpg_plane(plane, k)
+    g = torch.randn_like(out)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert lpg_cuda.lpg_plane.launches == 1 and lpg_cuda.lpg_plane_bwd.launches == 1
+    p = plane.detach()
+    den = _plane_den(p, k)
+    keep = den.reshape(b, h * k, w * k).abs() >= 1e-3
+    ref = lpg_cuda.lpg_plane_plain(p, k)
+    torch.testing.assert_close(out[keep], ref[keep], rtol=2e-5, atol=2e-6 * ref[keep].abs().max().item())
+    cells = (den.abs() >= 1e-3).all(4).all(2)
+    gref = lpg_cuda.lpg_plane_bwd_plain(p, g, k)
+    assert plane.grad.shape == p.shape and plane.grad.is_contiguous()
+    torch.testing.assert_close(plane.grad[cells], gref[cells], rtol=2e-4,
+                               atol=2e-5 * gref[cells].abs().max().item())
+
+
+def test_lpg_plane_backward_returns_bf16_for_bf16(card):
+    plane = _plane(card, 2, 11, 20, dtype=torch.bfloat16)
+    g = torch.randn(2, 44, 80, device=card)
+    out = lpg_cuda.lpg_plane_bwd(plane, g, 4)
+    ref = lpg_cuda.lpg_plane_bwd_plain(plane, g, 4)
+    assert out.dtype == torch.bfloat16
+    cells = (_plane_den(plane, 4).abs() >= 1e-3).all(4).all(2)
+    torch.testing.assert_close(out.float()[cells], ref.float()[cells], rtol=2 ** -7,
+                               atol=2e-5 * ref.float()[cells].abs().max().item())
+
+
+@pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (4, 88, 304, 1), (2, 176, 608, 1), (8, 13, 37, 2)])
+def test_phase_kernel_is_k1_interleaved(card, k, h, w, b):
+    raw = _raw(card, b, h, w, seed=k)
+    ph = tail_cuda.lpg_phase_planes(raw, k)
+    torch.cuda.synchronize()
+    assert ph.shape == (b, 4, h * k // 2, w * k // 2)
+    assert torch.equal(tail_cuda.interleave2x2(ph), lpg_cuda.lpg_fused_fwd(raw, k))
+    assert torch.equal(ph, tail_cuda.lpg_phase_planes_plain(raw, k))
+
+
+def _tail_inputs(card, b, hh, w2, seed, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+
+    def t(*shape, scale=0.3):
+        return (torch.randn(*shape, generator=g) * scale).to(card)
+
+    shapes = {"up": (3, 3, 64, 32), "r1": (1, 1, 32, 16), "r2": (1, 1, 16, 8),
+              "r3": (1, 1, 8, 1), "i1": (3, 3, 36, 32), "f": (3, 3, 32, 1)}
+    params = {n: {"kernel": t(*s), "bias": t(s[-1])} for n, s in shapes.items()}
+    iconv2 = t(b, 64, hh, w2).to(dtype).permute(0, 2, 3, 1)  # the decoder's NCHW view
+    maps = [tail_cuda.lpg_phase_planes(_raw(card, b, 2 * hh // k, 2 * w2 // k, seed + k), k) for k in (2, 4, 8)]
+    return iconv2, maps, params
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hh,w2", [(2, 16, 128), (1, 16, 152), (1, 24, 40)])
+def test_tail_kernel_matches_plain(card, b, hh, w2, dtype, monkeypatch):
+    """K6 against its plain version at a tile multiple and at ragged widths,
+    on the decoder's NCHW view of iconv2 in f32 and in bf16 (a bf16 view
+    must still be copied to channels-last)."""
+    from bts_tpu_torch.models.bts import set_float32_precision
+
+    set_float32_precision()  # the plain version's f32 convs without TF32
+    monkeypatch.setattr(tail_cuda.fused_tail, "launches", 0)
+    iconv2, maps, params = _tail_inputs(card, b, hh, w2, seed=hh + w2, dtype=dtype)
+    fin, d1 = tail_cuda.fused_tail(iconv2, *maps, params)
+    torch.cuda.synchronize()
+    assert tail_cuda.fused_tail.launches == 1
+    rfin, rd1 = tail_cuda.fused_tail_plain(iconv2, *maps, params)
+    for out, ref in ((fin, rfin), (d1, rd1)):
+        assert out.shape == (b, 4, hh, w2) and torch.isfinite(out).all()
+        e = (out - ref).abs()
+        assert e.mean() <= 2e-5 and e.max() <= 5e-2 and (e > 1e-4).float().mean() <= 0.01, (
+            e.mean().item(), e.max().item())
+
+
+def test_tail_kernel_refuses_bad_shapes(card):
+    iconv2, maps, params = _tail_inputs(card, 1, 16, 128, seed=0)
+    with pytest.raises(ValueError, match="iconv2"):
+        tail_cuda.fused_tail(iconv2[..., :32], *maps, params)
+    with pytest.raises(ValueError, match="maps"):
+        tail_cuda.fused_tail(iconv2, maps[0][..., :64], maps[1], maps[2], params)

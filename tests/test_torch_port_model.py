@@ -244,7 +244,7 @@ def test_seeded_init_is_flax_like_and_reproducible():
 
 @pytest.mark.parametrize(
     "change,match",
-    [({"encoder": "resnet50_bts"}, "ROADMAP"), ({"fused_tail": "always"}, "ROADMAP")],
+    [({"encoder": "resnet50_bts"}, "ROADMAP"), ({"spatial_shards": 2}, "ROADMAP")],
 )
 def test_unported_options_raise(change, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -253,7 +253,8 @@ def test_unported_options_raise(change, match):
 
 PORT_MODULES = (
     "bts_tpu_torch", "bts_tpu_torch.config", "bts_tpu_torch.models", "bts_tpu_torch.ops",
-    "bts_tpu_torch.ops.lpg_cuda", "bts_tpu_torch.ops.silog", "bts_tpu_torch.data.augment",
+    "bts_tpu_torch.ops.lpg_cuda", "bts_tpu_torch.ops.lpg", "bts_tpu_torch.ops.tail_cuda",
+    "bts_tpu_torch.ops.silog", "bts_tpu_torch.data.augment",
     "bts_tpu_torch.utils.weights", "bts_tpu_torch.utils.torch_converter",
     "bts_tpu_torch.utils.checkpoint", "bts_tpu_torch.utils.summary", "bts_tpu_torch.utils.preemption",
     "bts_tpu_torch.training.optimizer", "bts_tpu_torch.training.trainer",

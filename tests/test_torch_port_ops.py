@@ -1,7 +1,9 @@
 """bts_tpu_torch ops against bts_tpu on the CPU: LPG, the fused head K1's
 plain version (against the Pallas kernel in interpret mode and against the
 composed jnp path), K2's plain version (against jax.grad of the interpret-mode
-Pallas head), the silog loss, resize and eval preprocessing.  The same numpy
+Pallas head), the public LPG op's K3 and K4 plain versions (against the
+interpret-mode Pallas op and its jax.grad), the silog loss, resize and eval
+preprocessing.  The same numpy
 inputs go to both sides.
 
 Tolerance: rtol 2e-5, atol 2e-6 (tests/test_ops.py's fused-head rule); the
@@ -131,6 +133,51 @@ def test_cpu_backward_launches_nothing(monkeypatch):
     raw = torch.from_numpy(_raw(9, (1, 4, 4, 3))).requires_grad_()
     lpg.lpg_scaled_from_raw(raw, 2, 10.0).sum().backward()
     assert lpg_cuda.lpg_fused_bwd.launches == 0 and raw.grad is not None
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("k", [2, 4, 8])
+def test_lpg_plane_plain_matches_pallas_and_its_grad(k, dtype, monkeypatch):
+    """K3's plain version against the TPU op ``lpg`` and K4's against its
+    jax.grad, both in interpret mode, for f32 and bf16 planes; the gradient
+    comes back in the plane's dtype.  bf16: both sides round the same f32
+    sums once, so they may differ by one bf16 step."""
+    import jax
+
+    monkeypatch.setattr(lpg_pallas, "_INTERPRET", True)
+    pe = np.asarray(jnp.asarray(_planes(np.random.default_rng(60 + k), 2, 3, 5)).astype(dtype))
+    g = np.random.default_rng(70 + k).normal(size=(2, 3 * k, 5 * k)).astype(np.float32)
+    port_pe = torch.from_numpy(pe.astype(np.float32)).to(torch.float32 if dtype == np.float32 else torch.bfloat16)
+    _close(lpg_cuda.lpg_plane_plain(port_pe, k), lpg_pallas.lpg(jnp.asarray(pe), k))
+    ref = jax.grad(lambda p: (lpg_pallas.lpg(p, k) * g).sum())(jnp.asarray(pe))
+    port = lpg_cuda.lpg_plane_bwd_plain(port_pe, torch.from_numpy(g), k)
+    assert port.dtype == port_pe.dtype and port.shape == port_pe.shape
+    if dtype == np.float32:
+        _grad_close(port, ref)
+    else:
+        ref = np.asarray(ref, np.float32)
+        _close(port.float(), ref, rtol=2**-7, atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("use_pallas", ["auto", "always", "never"])
+def test_public_lpg_op_on_the_cpu(use_pallas, monkeypatch):
+    """local_planar_guidance on a CPU tensor: every setting computes the
+    plain version, matches the JAX op's jnp path, launches nothing, and its
+    gradient is K4's plain version."""
+    for fn in (lpg_cuda.lpg_plane, lpg_cuda.lpg_plane_bwd):
+        monkeypatch.setattr(fn, "launches", 0)
+    pe = torch.from_numpy(_planes(np.random.default_rng(80), 1, 4, 6)).requires_grad_()
+    out = lpg.local_planar_guidance(pe, 4, use_pallas)
+    _close(out.detach(), jlpg.local_planar_guidance(jnp.asarray(pe.detach().numpy()), 4, "never"))
+    g = torch.from_numpy(np.random.default_rng(81).normal(size=out.shape).astype(np.float32))
+    (out * g).sum().backward()
+    _grad_close(pe.grad, lpg_cuda.lpg_plane_bwd_plain(pe.detach(), g, 4).numpy())
+    assert lpg_cuda.lpg_plane.launches == 0 and lpg_cuda.lpg_plane_bwd.launches == 0
+
+
+def test_public_lpg_op_rejects_unknown_setting():
+    with pytest.raises(ValueError, match="use_pallas"):
+        lpg.local_planar_guidance(torch.zeros(1, 2, 2, 4), 2, use_pallas="sometimes")
 
 
 @pytest.mark.parametrize("dataset", ["kitti", "nyu"])
