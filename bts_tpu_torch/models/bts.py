@@ -151,8 +151,7 @@ class BtsDecoder(nn.Module):
         tail = tail_cuda.fused_tail_plain if plain else tail_cuda.fused_tail
         d8ph, d4ph, d2ph = (phase(r.permute(0, 2, 3, 1), k)
                             for r, k in ((reduc8, 8), (reduc4, 4), (reduc2, 2)))
-        # both versions round iconv2 to bf16 (the kernel's wrapper in its one
-        # channels-last copy)
+        # both versions round iconv2 to bf16 (the kernel as it stages it)
         fin_ph, d1ph = tail(iconv2.permute(0, 2, 3, 1), d2ph, d4ph, d8ph, tail_cuda.tail_params(self))
         return tuple(tail_cuda.interleave2x2(p)[:, None] for p in (d8ph, d4ph, d2ph, d1ph, fin_ph))
 

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 class Built:
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output (ptxas -v), "" when already built
+    log: str  # nvcc's output (ptxas -v), kept beside the library as lib<name>-<digest>.log
 
 
 def find_nvcc() -> str:
@@ -49,25 +49,29 @@ def find_nvcc() -> str:
     return found
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` unless this exact source is already built."""
+def build(name: str, defines: tuple = ()) -> Built:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` of each of ``defines``, for a
+    profiling build) unless this exact source is already built."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}-{digest}.so"
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}{''.join('-' + d.lower() for d in defines)}-{digest}.so"
+    log_path = lib.with_suffix(".log")
     if lib.exists():
-        return Built(lib, 0.0, "")
+        return Built(lib, 0.0, log_path.read_text() if log_path.exists() else "")
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True
+        [nvcc, *flags, "-o", str(tmp), str(src)], capture_output=True, text=True
     )
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {src} (exit {proc.returncode}):\n{log}")
+    log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all of it or none
     return Built(lib, seconds, log)
 

@@ -12,7 +12,10 @@ q = 2*py + pz holding full-resolution pixel (2u+py, 2v+pz).
   the 36-channel concat, iconv1 + ELU and the final conv + sigmoid, in the
   bf16 rounding schedule of the TPU kernel (see ``fused_tail.cu``).
 - :func:`tail_params` reads K6's weights from a port decoder's modules, in
-  the JAX package's parameter layout (HWIO kernels).
+  the JAX package's parameter layout (HWIO kernels);
+  :func:`pack_tail_params` lays them out as K6 reads them (bf16 mma.sync B
+  fragments and f32 small parameters) and :func:`packed_tail_params` caches
+  that buffer per weight version.
 - A CPU tensor takes the plain version; a CUDA tensor launches the kernel
   or raises.  Each launch adds one to ``lpg_phase_planes.launches`` or
   ``fused_tail.launches``.
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +36,8 @@ from bts_tpu_torch.ops import _build
 from bts_tpu_torch.ops.lpg_cuda import _check_raw, _forward, _stream, lpg_fused_plain
 
 CIN = 64  # iconv2 channels: bts_size 512
-N_PARAMS = 44162  # floats of pack_tail_params' buffer (fused_tail.cu's N_PARAMS)
+PARAM_BYTES = 92688  # bytes of pack_tail_params' buffer (fused_tail.cu's PARAM_BYTES)
+FRAG_BYTES = 65536 + 23040  # its bf16 mma.sync B fragments: the upconv's, then iconv1's
 
 
 def tail_supported(iconv2_shape) -> bool:
@@ -79,7 +84,9 @@ def lpg_phase_planes(raw3: torch.Tensor, k: int) -> torch.Tensor:
 def tail_params(decoder) -> dict:
     """K6's weights from a port ``BtsDecoder``, as the JAX branch reads them
     from the literal modules (upconv1, reduc1x1's three convs, conv1,
-    get_depth): ``{"up"|"r1"|"r2"|"r3"|"i1"|"f": {"kernel": HWIO f32, "bias"}}``."""
+    get_depth): ``{"up"|"r1"|"r2"|"r3"|"i1"|"f": {"kernel": HWIO f32, "bias"}}``,
+    views of the f32 parameters (no copy), which :func:`packed_tail_params`
+    keys its cache on."""
 
     def conv(m):
         return {"kernel": m.weight.detach().float().permute(2, 3, 1, 0), "bias": m.bias.detach().float()}
@@ -156,36 +163,100 @@ def fused_tail_plain(iconv2, d2ph, d4ph, d8ph, params):
     return _split2x2(final), _split2x2(d1x1)
 
 
+def _frag_k16(bmat: torch.Tensor) -> torch.Tensor:
+    """B (K, 32), K a multiple of 16, as the mma.sync m16n8k16 B fragments
+    are read: [k-step][tile pair h][lane][8], the 8 values being b0, b1 of
+    n8 tile 2h then of tile 2h+1 (b0: k = 2t, 2t+1; b1: k = 2t+8, 2t+9;
+    n = 8*tile + g; lane = 4g + t)."""
+    b = bmat.reshape(-1, 2, 4, 2, 2, 2, 8)  # (k-step, b0|b1, t, e, h, tile in pair, g)
+    return b.permute(0, 4, 6, 2, 5, 1, 3).reshape(-1, 2, 32, 8)
+
+
+def _frag_k8(bmat: torch.Tensor) -> torch.Tensor:
+    """B (8, 32) as the m16n8k8 b0 fragments of n8 tiles 0..3: [lane][tile][2]."""
+    return bmat.reshape(4, 2, 4, 8).permute(3, 0, 2, 1).reshape(32, 8)
+
+
 def pack_tail_params(params) -> torch.Tensor:
-    """K6's parameter buffer (f32, N_PARAMS floats) in fused_tail.cu's order:
-    the folded upconv per phase [q][dy][dx][64][32], its bias, r1 [32][16],
-    bias, r2 [16][8], bias, r3 [8], bias, iconv1 [3][3][36][32], bias, final
-    [3][3][32], bias.  Kernels and the upconv / r1 / r2 / iconv1 biases are
-    bf16 values; the r3 and final biases stay f32, as in the TPU kernel."""
+    """K6's parameter buffer (uint8, PARAM_BYTES) in fused_tail.cu's order:
+    bf16 B fragments of the folded upconv per phase (B[tap*64 + c][n] over
+    taps [dy][dx]) and of iconv1 per tap (channels 0..31 in two k16 steps,
+    then channels 32..35 and four zero rows in one k8 step), then f32: r1
+    [32][16], bias, r2 [16][8], bias, r3 [8], bias, final [3][3][32], bias
+    (the kernel takes these 962 floats by value too), the upconv bias,
+    the iconv1 bias, two zeros.  Kernels and the upconv / r1 / r2 / iconv1
+    biases are bf16 values; the r3 and final biases stay f32, as in the TPU
+    kernel."""
     k4 = _folded_upconv(params["up"]["kernel"])
-    pieces = [torch.stack([_phase_taps(k4, py, pz) for py in (0, 1) for pz in (0, 1)])]
-    for name in ("up", "r1", "r2", "r3", "i1", "f"):
-        if name != "up":
-            pieces.append(_bf(params[name]["kernel"]))
-        last = name in ("r3", "f")
-        pieces.append(params[name]["bias"].float() if last else _bf(params[name]["bias"]))
-    flat = torch.cat([p.reshape(-1) for p in pieces])
-    assert flat.numel() == N_PARAMS, flat.numel()
-    return flat.contiguous()
+    up = [_frag_k16(_phase_taps(k4, py, pz).reshape(4 * CIN, 32)) for py in (0, 1) for pz in (0, 1)]
+    i1 = _bf(params["i1"]["kernel"]).reshape(9, 36, 32)
+    maps = F.pad(i1[:, 32:], (0, 0, 0, 4))  # (9, 8, 32): d1, d2, d4, d8, four zero rows
+    taps = [torch.cat([_frag_k16(i1[t, :32]).reshape(-1), _frag_k8(maps[t]).reshape(-1)]) for t in range(9)]
+    frags = torch.cat([f.reshape(-1) for f in up] + taps).to(torch.bfloat16)
+    p = params
+    small = [_bf(p["r1"]["kernel"]), _bf(p["r1"]["bias"]), _bf(p["r2"]["kernel"]), _bf(p["r2"]["bias"]),
+             _bf(p["r3"]["kernel"]), p["r3"]["bias"].float(), _bf(p["f"]["kernel"]), p["f"]["bias"].float(),
+             _bf(p["up"]["bias"]), _bf(p["i1"]["bias"]), k4.new_zeros(2)]
+    small = torch.cat([t.reshape(-1) for t in small])
+    buf = torch.cat([frags.view(torch.uint8), small.view(torch.uint8)])
+    assert buf.numel() == PARAM_BYTES, buf.numel()
+    return buf
+
+
+def host_floats(buf: torch.Tensor) -> torch.Tensor:
+    """The f32 part of a :func:`pack_tail_params` buffer, on the host (the
+    kernel launch passes its first 962 floats by value)."""
+    return buf[FRAG_BYTES:].view(torch.float32).cpu()
+
+
+_TAIL_LAYERS = ("up", "r1", "r2", "r3", "i1", "f")
+_PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()  # key -> ((buffer, host floats), the sources)
+_PACKED_MAX = 4
+
+
+def packed_tail_params(params, device) -> tuple:
+    """(:func:`pack_tail_params` on ``device``, its :func:`host_floats`),
+    cached: the same pair while each source tensor keeps its ``(data_ptr,
+    _version, device)`` (and dtype, shape, strides), so the weights are
+    packed once per model and again after ``load_state_dict`` or an in-place
+    update.  An entry keeps its source tensors alive, so no other tensor can
+    take their addresses; the last four entries are kept.  Inference tensors
+    have no version counter and are packed on every call."""
+    device = torch.device(device)
+    tensors = [params[n][k] for n in _TAIL_LAYERS for k in ("kernel", "bias")]
+    if any(t.is_inference() for t in tensors):
+        buf = pack_tail_params(params).to(device)
+        return buf, host_floats(buf)
+    key = (device,) + tuple((t.data_ptr(), t._version, t.device, t.dtype, tuple(t.shape), t.stride())
+                            for t in tensors)
+    hit = _PACKED.get(key)
+    if hit is not None:
+        _PACKED.move_to_end(key)
+        return hit[0]
+    buf = pack_tail_params(params).to(device)
+    packed = (buf, host_floats(buf))
+    _PACKED[key] = (packed, tensors)
+    while len(_PACKED) > _PACKED_MAX:
+        _PACKED.popitem(last=False)
+    return packed
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built ``fused_tail.cu``'s C interface."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.fused_tail_forward.argtypes = [vp, i32, i64, i64, i64, i64, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
+    lib.fused_tail_forward.restype = i32
+    lib.fused_tail_param_bytes.restype = i32
+    lib.fused_tail_error_string.argtypes = [i32]
+    lib.fused_tail_error_string.restype = ctypes.c_char_p
+    if lib.fused_tail_param_bytes() != PARAM_BYTES:
+        raise RuntimeError(f"fused_tail.cu takes {lib.fused_tail_param_bytes()} parameter bytes, not {PARAM_BYTES}")
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("fused_tail")
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fused_tail_forward.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
-    lib.fused_tail_forward.restype = i32
-    lib.fused_tail_num_params.restype = i32
-    lib.fused_tail_error_string.argtypes = [i32]
-    lib.fused_tail_error_string.restype = ctypes.c_char_p
-    if lib.fused_tail_num_params() != N_PARAMS:
-        raise RuntimeError(f"fused_tail.cu takes {lib.fused_tail_num_params()} parameters, not {N_PARAMS}")
-    return lib
+    return bind(_build.load("fused_tail"))
 
 
 def fused_tail(iconv2, d2ph, d4ph, d8ph, params):
@@ -196,9 +267,11 @@ def fused_tail(iconv2, d2ph, d4ph, d8ph, params):
     sigmoid(final logits) and of the depth_1x1 head.
 
     A CPU tensor takes :func:`fused_tail_plain`.  A CUDA tensor launches K6
-    on the current stream and adds one to ``fused_tail.launches``; iconv2 is
-    first copied once into a channels-last bf16 buffer (the decoder's NCHW
-    activation arrives as a permuted view)."""
+    on the current stream and adds one to ``fused_tail.launches``.  K6 reads
+    iconv2 through its strides (the decoder's NCHW activation arrives as a
+    permuted view), bf16 or f32 (another float dtype is cast to f32 first),
+    and rounds it to bf16 as it stages it, so nothing is copied; the packed
+    weights come from :func:`packed_tail_params`'s cache."""
     if iconv2.device.type == "cpu":
         return fused_tail_plain(iconv2, d2ph, d4ph, d8ph, params)
     b, hh, w2, cin = iconv2.shape
@@ -211,19 +284,17 @@ def fused_tail(iconv2, d2ph, d4ph, d8ph, params):
                              f"got {tuple(m.shape)} on {m.device}")
     if (hh + 7) // 8 > 65535 or b > 65535:
         raise ValueError(f"fused_tail: grid too large for (B={b}, Hh={hh})")
-    # one copy into channels-last bf16 (Tensor.to would alias a bf16 view
-    # whose strides merely look contiguous to it)
-    x = torch.empty((b, hh, w2, cin), dtype=torch.bfloat16, device=iconv2.device).copy_(iconv2)
+    x = iconv2 if iconv2.dtype in (torch.bfloat16, torch.float32) else iconv2.float()
     maps = [m.float().contiguous() for m in (d2ph, d4ph, d8ph)]
-    prm = pack_tail_params(params).to(iconv2.device)
+    prm, small = packed_tail_params(params, iconv2.device)
     fin = torch.empty((b, 4, hh, w2), dtype=torch.float32, device=x.device)
     d1 = torch.empty_like(fin)
     if fin.numel() == 0:
         return fin, d1
     with torch.cuda.device(x.device):
         err = _lib().fused_tail_forward(
-            x.data_ptr(), *(m.data_ptr() for m in maps), prm.data_ptr(), fin.data_ptr(),
-            d1.data_ptr(), b, hh, w2, _stream(x.device),
+            x.data_ptr(), int(x.dtype == torch.float32), *x.stride(), *(m.data_ptr() for m in maps),
+            prm.data_ptr(), small.data_ptr(), fin.data_ptr(), d1.data_ptr(), b, hh, w2, _stream(x.device),
         )
     if err != 0:
         raise RuntimeError(f"fused_tail kernel launch failed: {_lib().fused_tail_error_string(err).decode()}")

@@ -12,7 +12,11 @@ Phases, one JSON line each, then the result:
                 started together: lpg_fused.cu (K1 the fused LPG head
                 forward, K2 its backward, K3/K4 the public LPG op's forward
                 and backward, K5 the head as phase planes) and fused_tail.cu
-                (K6 the fused decoder tail).
+                (K6 the fused decoder tail), and fused_tail.cu again with
+                -DK6_STAGE_CLOCKS (K6's stage clocks); ptxas's registers and
+                spills of K6, and the count of HMMA (tensor-core)
+                instructions in the SASS (cuobjdump) of each of its two
+                instances (bf16 and f32 iconv2), which must be > 0.
 3. kernel     - K1 against its plain PyTorch version at the three shapes of
                 a 352x1216 forward and one ragged B=2 shape; rule rtol 2e-5,
                 atol 2e-6*max|ref| on pixels with |denominator| >= 1e-3 (the
@@ -36,9 +40,13 @@ Phases, one JSON line each, then the result:
                 plain version at 352x1216 b1 (B=1, Hh=176, W2=608) and at a
                 ragged B=2, Hh=16, W2=152: max and mean abs error and pixels
                 above 1e-4, rule mean <= 2e-5, max <= 5e-2, share above 1e-4
-                <= 1%.  Times (K6 also alone, without the wrapper's copy to
-                channels-last bf16 and weight packing) and bounds (K6 against
-                the bf16 tensor-core rate, with the f32 CUDA-core floor).
+                <= 1%.  Times (K6 also alone, launched directly on the same
+                iconv2 view; the wrapper's overhead) and bounds (K6
+                against the bf16 tensor-core rate, with the f32 CUDA-core
+                floor, and the share of the bound reached); K6's median
+                SM cycles per block in each stage (staging, upconv,
+                reduction chain, iconv1, final conv) from the profiling
+                build.
 7. slice      - serving: create_model + bts_test.predict, DenseNet-161,
                 bts_size 512, 352x1216, batch 1, KITTI focal, seeded
                 weights, float32 and bfloat16; 3 K1 launches per forward;
@@ -84,12 +92,15 @@ Nothing falls back to the CPU or to the plain version.  It imports no JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -126,6 +137,7 @@ K1_OPS_PER_PIXEL, K2_OPS_PER_PIXEL = 5, 10
 # 4*64*32*2, the reduction chain (32*16 + 16*8 + 8)*2, iconv1 9*36*32*2,
 # the final conv 9*32*2
 K6_FLOPS_PER_PIXEL = 4 * 64 * 32 * 2 + (32 * 16 + 16 * 8 + 8) * 2 + 9 * 36 * 32 * 2 + 9 * 32 * 2
+K6_TILE = (8, 16)  # fused_tail.cu's output tile (phase rows, phase cols): one block each
 
 
 def emit(obj) -> None:
@@ -143,6 +155,40 @@ def card_line() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def sass_count(lib_path, kernel: str, opcode: str) -> dict:
+    """Instructions with opcode ``opcode`` in the SASS (``cuobjdump -sass`` of
+    the built library) of each function whose name contains ``kernel``, by
+    mangled name."""
+    from bts_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip() if kernel in line else None
+            if name:
+                counts[name] = 0
+        elif name and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return counts
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """Registers and spill bytes ptxas -v reported for each function whose
+    name contains ``kernel``, by mangled name."""
+    report, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            report.setdefault(name, {}).update(spill_store_bytes=int(m[1]), spill_load_bytes=int(m[2]))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            report.setdefault(name, {})["registers"] = int(m[1])
+    return report
 
 
 def _events():
@@ -423,9 +469,37 @@ def tail_gap(out, ref) -> dict:
             and e.max().item() <= TAIL_MAX and (e > 1e-4).float().mean().item() <= TAIL_OFF_SHARE}
 
 
-def phase_tail(card: str) -> dict:
+def stage_cycles(lib_path, iconv2, maps, params, b, hh, w2) -> dict:
+    """K6's stage times in SM cycles, the median over its blocks, from the
+    profiling build (-DK6_STAGE_CLOCKS: clock64() at the start and after each
+    stage, thread 0 of each block)."""
+    from bts_tpu_torch.ops import tail_cuda
+
+    lib = tail_cuda.bind(ctypes.CDLL(str(lib_path)))
+    lib.fused_tail_stage_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    prm = tail_cuda.pack_tail_params(params)
+    small = tail_cuda.host_floats(prm)
+    fo = torch.empty((b, 4, hh, w2), device="cuda")
+    do = torch.empty_like(fo)
+    for _ in range(3):
+        check(lib.fused_tail_forward(iconv2.data_ptr(), 0, *iconv2.stride(), *(m.data_ptr() for m in maps),
+                                     prm.data_ptr(), small.data_ptr(), fo.data_ptr(), do.data_ptr(), b, hh, w2,
+                                     torch.cuda.current_stream().cuda_stream) == 0, "K6 profiling launch")
+    torch.cuda.synchronize()
+    blocks = b * -(-hh // K6_TILE[0]) * -(-w2 // K6_TILE[1])
+    stamps = np.zeros((blocks, 6), np.int64)
+    check(lib.fused_tail_stage_clocks(stamps.ctypes.data, stamps.size) == 0, "K6 stage clocks")
+    d = np.diff(stamps, axis=1)
+    out = {name: float(np.median(d[:, i]))
+           for i, name in enumerate(("staging", "upconv", "reduction_chain", "iconv1", "final_conv"))}
+    out["block"] = float(np.median(stamps[:, -1] - stamps[:, 0]))
+    return out
+
+
+def phase_tail(card: str, clocks_lib) -> dict:
     """K5 against its plain version and bit-equal to K1 interleaved; K6
-    against its plain version; times and bounds of each call."""
+    against its plain version; times and bounds of each call; K6's stage
+    cycles from its profiling build ``clocks_lib``."""
     from bts_tpu_torch.models.bts import set_float32_precision
     from bts_tpu_torch.ops import tail_cuda
     from bts_tpu_torch.ops.lpg_cuda import lpg_fused_fwd
@@ -457,14 +531,15 @@ def phase_tail(card: str) -> dict:
         row["max_abs_err"] = max(row["final"]["max_abs_err"], row["d1x1"]["max_abs_err"])
         row.update(timings(lambda: tail_cuda.fused_tail(iconv2, *maps, params),
                            lambda: tail_cuda.fused_tail_plain(iconv2, *maps, params)))
-        # the kernel alone, on iconv2 already channels-last bf16 and packed weights
-        x = iconv2.contiguous()
+        # the kernel alone, on the same iconv2 view and weights packed beforehand
         prm, fo, do = tail_cuda.pack_tail_params(params), torch.empty_like(fin), torch.empty_like(d1)
+        small = tail_cuda.host_floats(prm)
         lib, stream = tail_cuda._lib(), torch.cuda.current_stream().cuda_stream
 
         def kernel_only():
-            err = lib.fused_tail_forward(x.data_ptr(), *(m.data_ptr() for m in maps), prm.data_ptr(),
-                                         fo.data_ptr(), do.data_ptr(), b, hh, w2, stream)
+            err = lib.fused_tail_forward(iconv2.data_ptr(), 0, *iconv2.stride(), *(m.data_ptr() for m in maps),
+                                         prm.data_ptr(), small.data_ptr(), fo.data_ptr(), do.data_ptr(),
+                                         b, hh, w2, stream)
             check(err == 0, f"K6 launch error {err}")
 
         row["kernel_only_ms"] = device_median_ms(kernel_only, call_median_ms(kernel_only))
@@ -474,9 +549,15 @@ def phase_tail(card: str) -> dict:
         row.update(bound(2 * b * hh * w2 * 64 + 3 * 4 * pixels + 2 * 4 * pixels,
                          K6_FLOPS_PER_PIXEL * pixels, BF16_OPS_PER_S))
         row["cuda_core_f32_floor_ms"] = K6_FLOPS_PER_PIXEL * pixels / F32_OPS_PER_S * 1e3
+        row["wrapper_overhead_ms"] = row["ms"] - row["kernel_only_ms"]
+        row["share_of_bound"] = row["bound_ms"] / row["kernel_only_ms"]
         rows.append(row)
         if (b, hh, w2) == TAIL_SHAPES[0]:
             total["K6"] = {key: row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            emit({"phase": "tail_k6", "shape": [b, hh, w2, 64], "card": card,
+                  **{key: row[key] for key in ("kernel_only_ms", "ms", "wrapper_overhead_ms", "bound_ms",
+                                               "cuda_core_f32_floor_ms", "share_of_bound")},
+                  "stage_cycles_median": stage_cycles(clocks_lib, iconv2, maps, params, b, hh, w2)})
     emit({"phase": "tail", "rule": f"K5: bit-equal to its plain version and to K1 interleaved; K6: mean abs "
           f"<= {TAIL_MEAN}, max abs <= {TAIL_MAX}, share above 1e-4 <= {TAIL_OFF_SHARE}",
           "shapes": rows, "per_forward": total})
@@ -897,19 +978,30 @@ def main() -> int:
     card = card_line()
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(), "card": card})
-    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, started together
-        built = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    # one nvcc per library, started together: the two sources and K6's
+    # profiling build with stage clocks
+    jobs = [(name, ()) for name in SOURCES] + [("fused_tail", ("K6_STAGE_CLOCKS",))]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(lambda job: _build.build(*job), jobs))
+    built, clocks_lib = dict(zip(SOURCES, libs)), libs[-1].path
     lpg_cuda._lib()
     tail_cuda._lib()
+    # K6 does its upconv and iconv1 on the tensor cores: HMMA in its SASS
+    # (one instance for bf16 iconv2, one for f32)
+    k6 = {"hmma_instructions": sass_count(built["fused_tail"].path, "fused_tail_kernel", "HMMA"),
+          "ptxas": ptxas_report(built["fused_tail"].log, "fused_tail_kernel")}
     emit({"phase": "build", "sources": SOURCES, "kernels": {key: name for name, key, _, _ in KERNELS},
-          "seconds": {n: b.seconds for n, b in built.items()},
+          "seconds": {**{n: b.seconds for n, b in built.items()}, "fused_tail_stage_clocks": libs[-1].seconds},
           "ptxas": {n: [l.strip() for l in b.log.splitlines() if "registers" in l or "spill" in l]
-                    for n, b in built.items()}})
+                    for n, b in built.items()},
+          "fused_tail_kernel": k6})
+    check(len(k6["hmma_instructions"]) == 2 and all(n > 0 for n in k6["hmma_instructions"].values()),
+          f"fused_tail_kernel without HMMA instructions: {k6['hmma_instructions']}")
 
     phase_kernel(card)
     per_step = phase_kernel_bwd(card)
     per_op, op_launches = phase_kernel_lpg(card)
-    per_tail = phase_tail(card)
+    per_tail = phase_tail(card, clocks_lib)
     serve_launches = phase_slice(card)
     tail_launches = phase_slice_tail(card)
     train_launches = phase_train(card)
@@ -932,8 +1024,8 @@ def main() -> int:
         "K4": dict(per_op["K4"], per="public op backward: the three config-4 heads, bf16 plane "
                                      "(max_abs_err: f32 plane)"),
         "K5": dict(per_tail["K5"], per="fused-tail forward: the three 352x1216 b1 heads"),
-        "K6": dict(per_tail["K6"], per="fused-tail forward, 352x1216 b1 (ms: copy to channels-last bf16, "
-                                       "weight packing and the kernel)"),
+        "K6": dict(per_tail["K6"], per="fused-tail forward, 352x1216 b1 (ms: through the wrapper, "
+                                       "packed weights cached)"),
     }
     result = []
     for name, key, lib, replaces in KERNELS:

@@ -184,7 +184,7 @@ def test_phase_kernel_is_k1_interleaved(card, k, h, w, b):
     assert torch.equal(ph, tail_cuda.lpg_phase_planes_plain(raw, k))
 
 
-def _tail_inputs(card, b, hh, w2, seed, dtype=torch.float32):
+def _tail_inputs(card, b, hh, w2, seed, dtype=torch.float32, x_scale=0.3):
     g = torch.Generator().manual_seed(seed)
 
     def t(*shape, scale=0.3):
@@ -193,31 +193,79 @@ def _tail_inputs(card, b, hh, w2, seed, dtype=torch.float32):
     shapes = {"up": (3, 3, 64, 32), "r1": (1, 1, 32, 16), "r2": (1, 1, 16, 8),
               "r3": (1, 1, 8, 1), "i1": (3, 3, 36, 32), "f": (3, 3, 32, 1)}
     params = {n: {"kernel": t(*s), "bias": t(s[-1])} for n, s in shapes.items()}
-    iconv2 = t(b, 64, hh, w2).to(dtype).permute(0, 2, 3, 1)  # the decoder's NCHW view
+    iconv2 = t(b, 64, hh, w2, scale=x_scale).to(dtype).permute(0, 2, 3, 1)  # the decoder's NCHW view
     maps = [tail_cuda.lpg_phase_planes(_raw(card, b, 2 * hh // k, 2 * w2 // k, seed + k), k) for k in (2, 4, 8)]
     return iconv2, maps, params
 
 
+def _assert_tail_rule(out, ref):
+    e = (out - ref).abs()
+    assert torch.isfinite(out).all()
+    assert e.mean() <= 2e-5 and e.max() <= 5e-2 and (e > 1e-4).float().mean() <= 0.01, (
+        e.mean().item(), e.max().item(), (e > 1e-4).float().mean().item())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hh,w2", [(2, 16, 128), (1, 16, 152), (1, 24, 40)])
-def test_tail_kernel_matches_plain(card, b, hh, w2, dtype, monkeypatch):
-    """K6 against its plain version at a tile multiple and at ragged widths,
-    on the decoder's NCHW view of iconv2 in f32 and in bf16 (a bf16 view
-    must still be copied to channels-last)."""
+@pytest.mark.parametrize("b,hh,w2,x_scale", [(2, 16, 128, 0.3), (1, 16, 152, 0.3), (1, 24, 40, 0.3),
+                                             (3, 40, 72, 0.3), (1, 16, 152, 3.0)])
+def test_tail_kernel_matches_plain(card, b, hh, w2, x_scale, dtype, monkeypatch):
+    """K6 against its plain version at a tile multiple and at ragged shapes
+    (Hh and W2 not multiples of the 8 x 16 tile: (3, 40, 72)), and with
+    iconv2 at scale 3.0, where the ELUs and sigmoids saturate; on the
+    decoder's NCHW view of iconv2 in f32 and in bf16 (a bf16 view must
+    still be copied to channels-last)."""
     from bts_tpu_torch.models.bts import set_float32_precision
 
     set_float32_precision()  # the plain version's f32 convs without TF32
     monkeypatch.setattr(tail_cuda.fused_tail, "launches", 0)
-    iconv2, maps, params = _tail_inputs(card, b, hh, w2, seed=hh + w2, dtype=dtype)
+    iconv2, maps, params = _tail_inputs(card, b, hh, w2, seed=hh + w2, dtype=dtype, x_scale=x_scale)
     fin, d1 = tail_cuda.fused_tail(iconv2, *maps, params)
     torch.cuda.synchronize()
     assert tail_cuda.fused_tail.launches == 1
     rfin, rd1 = tail_cuda.fused_tail_plain(iconv2, *maps, params)
     for out, ref in ((fin, rfin), (d1, rd1)):
-        assert out.shape == (b, 4, hh, w2) and torch.isfinite(out).all()
-        e = (out - ref).abs()
-        assert e.mean() <= 2e-5 and e.max() <= 5e-2 and (e > 1e-4).float().mean() <= 0.01, (
-            e.mean().item(), e.max().item())
+        assert out.shape == (b, 4, hh, w2)
+        _assert_tail_rule(out, ref)
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "strided"])
+def test_tail_kernel_reads_iconv2_through_its_strides(card, layout):
+    """K6 reads iconv2 through its strides: a contiguous (B, Hh, W2, 64)
+    tensor and a view with a column stride of 2 give the plain version's
+    result as the decoder's NCHW view does."""
+    from bts_tpu_torch.models.bts import set_float32_precision
+
+    set_float32_precision()
+    iconv2, maps, params = _tail_inputs(card, 1, 16, 72, seed=7)
+    if layout == "channels_last":
+        x = iconv2.contiguous()
+    else:
+        wide = torch.zeros(1, 16, 144, 64, device=card)
+        wide[:, :, ::2] = iconv2
+        x = wide[:, :, ::2]
+    assert x.stride() != iconv2.stride()
+    fin, d1 = tail_cuda.fused_tail(x, *maps, params)
+    rfin, rd1 = tail_cuda.fused_tail_plain(iconv2, *maps, params)
+    _assert_tail_rule(fin, rfin)
+    _assert_tail_rule(d1, rd1)
+
+
+def test_tail_kernel_sees_a_weight_update(card):
+    """An in-place update of a weight between two calls (same address, new
+    version) reaches the kernel through the packed-weight cache."""
+    from bts_tpu_torch.models.bts import set_float32_precision
+
+    set_float32_precision()
+    iconv2, maps, params = _tail_inputs(card, 1, 16, 128, seed=5)
+    fin0, d10 = tail_cuda.fused_tail(iconv2, *maps, params)
+    assert tail_cuda.fused_tail(iconv2, *maps, params)[0].equal(fin0)
+    with torch.no_grad():
+        params["i1"]["kernel"].mul_(-1.0)
+    fin1, d11 = tail_cuda.fused_tail(iconv2, *maps, params)
+    torch.cuda.synchronize()
+    assert torch.equal(d11, d10)  # iconv1 does not reach the d1x1 head
+    assert (fin1 - fin0).abs().max() > 0.1
+    _assert_tail_rule(fin1, tail_cuda.fused_tail_plain(iconv2, *maps, params)[0])
 
 
 def test_tail_kernel_refuses_bad_shapes(card):

@@ -134,6 +134,102 @@ def test_fused_tail_plain_matches_jax(shape, tail_case):
         assert _within_rule(gap), (name, gap)
 
 
+def _unpack_k16(frag, ksteps):
+    """B (16*ksteps, 32) from fused_tail.cu's m16n8k16 B fragments, read as
+    the PTX ISA defines them: lane = 4g + t holds b0 = B[2t, 2t+1][n] and
+    b1 = B[2t+8, 2t+9][n] of n8 tile j at n = 8j + g; a lane's 16 bytes per
+    k-step and tile pair h are b0, b1 of tile 2h, then of tile 2h+1."""
+    frag = frag.reshape(ksteps, 2, 32, 8)
+    out = np.zeros((16 * ksteps, 32), np.float32)
+    for s in range(ksteps):
+        for h in range(2):
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for reg in range(4):
+                    k = 16 * s + 2 * t + 8 * (reg % 2)
+                    out[k:k + 2, 8 * (2 * h + reg // 2) + g] = frag[s, h, lane, 2 * reg:2 * reg + 2]
+    return out
+
+
+def _unpack_k8(frag):
+    """B (8, 32) from m16n8k8 b0 fragments: lane 4g + t, tile j -> B[2t, 2t+1][8j + g]."""
+    frag = frag.reshape(32, 4, 2)
+    out = np.zeros((8, 32), np.float32)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(4):
+            out[2 * t:2 * t + 2, 8 * j + g] = frag[lane, j]
+    return out
+
+
+def test_packed_tail_params_unpack_to_the_kernels():
+    """K6's packed buffer, read back by the mma.sync fragment layout, gives
+    the folded upconv's phase taps, iconv1's HWIO kernel (maps and zero rows
+    in the k8 step) and the small parameters, so a slip in the fragment
+    order shows without a card."""
+    p = _torch_params(_tail_params(np.random.default_rng(3)))
+    buf = tail_cuda.pack_tail_params(p)
+    assert buf.dtype == torch.uint8 and buf.numel() == tail_cuda.PARAM_BYTES
+    k4_bytes, ki1_bytes = 4 * 16 * 2 * 32 * 16, 9 * 2560
+    frags = buf[:k4_bytes + ki1_bytes].view(torch.bfloat16).float().numpy()
+    k4 = tail_cuda._folded_upconv(p["up"]["kernel"])
+    for q, (py, pz) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        got = _unpack_k16(frags[q * 8192:(q + 1) * 8192], 16).reshape(2, 2, 64, 32)
+        np.testing.assert_array_equal(got, k4[py::2, pz::2].numpy())
+    i1 = tail_cuda._bf(p["i1"]["kernel"]).reshape(9, 36, 32).numpy()
+    for tap in range(9):
+        f = frags[32768 + tap * 1280:32768 + (tap + 1) * 1280]
+        np.testing.assert_array_equal(_unpack_k16(f[:1024], 2), i1[tap, :32])
+        maps = _unpack_k8(f[1024:])
+        np.testing.assert_array_equal(maps[:4], i1[tap, 32:])
+        assert not maps[4:].any()
+    small = buf[k4_bytes + ki1_bytes:].view(torch.float32).numpy()
+    bf = lambda name, part: tail_cuda._bf(p[name][part]).reshape(-1).numpy()  # noqa: E731
+    want = np.concatenate([bf("r1", "kernel"), bf("r1", "bias"), bf("r2", "kernel"), bf("r2", "bias"),
+                           bf("r3", "kernel"), p["r3"]["bias"].numpy(), bf("f", "kernel"), p["f"]["bias"].numpy(),
+                           bf("up", "bias"), bf("i1", "bias"), np.zeros(2, np.float32)])
+    np.testing.assert_array_equal(small, want)
+    np.testing.assert_array_equal(tail_cuda.host_floats(buf).numpy(), want)
+    assert k4_bytes + ki1_bytes == tail_cuda.FRAG_BYTES
+
+
+class _TailModules(torch.nn.Module):
+    """The decoder's tail modules, as tail_params reads them."""
+
+    def __init__(self):
+        super().__init__()
+        self.upconv1 = layers.UpConv(64, 32)
+        self.reduc1x1 = layers.Reduction1x1(32, 16, is_final=True)
+        self.conv1 = layers.ConvBlock(36, 32)
+        self.get_depth = layers.ConvBlock(32, 1, act=None)
+
+
+@pytest.mark.parametrize("update", ["load_state_dict", "add_"])
+def test_packed_tail_params_cache(update):
+    """The cache gives the same buffer while the weights are unchanged and a
+    new one, of the new weights, after load_state_dict or an in-place add_."""
+    torch.manual_seed(0)
+    mods = _TailModules()
+
+    def packed():
+        return tail_cuda.packed_tail_params(tail_cuda.tail_params(mods), "cpu")
+
+    first = packed()
+    assert all(a is b for a, b in zip(packed(), first))
+    with torch.inference_mode():  # as predict runs the model
+        assert all(a is b for a, b in zip(packed(), first))
+    if update == "add_":
+        with torch.no_grad():
+            mods.conv1.weight.add_(0.5)
+    else:
+        mods.load_state_dict(_TailModules().state_dict())
+    again = packed()
+    assert again[0] is not first[0] and not torch.equal(again[0], first[0])
+    assert torch.equal(again[0], tail_cuda.pack_tail_params(tail_cuda.tail_params(mods)))
+    assert torch.equal(again[1], tail_cuda.host_floats(again[0]))
+    assert all(a is b for a, b in zip(packed(), again))
+
+
 def _literal_tail(p, x, maps):
     """The port's literal modules in bf16 on the same weights and inputs:
     upconv1 -> reduc1x1 -> concat -> conv1 -> get_depth, as phase planes."""
@@ -236,8 +332,9 @@ def test_decoder_fused_tail_matches_jax(dtype, decoder_case):
     feats, focal, variables = decoder_case
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
     jdec = JBtsDecoder(max_depth=MAX_DEPTH, num_features=NF, dtype=jdt, fused_tail="always")
-    ref = jax.jit(lambda fs, f: jdec.apply(variables, fs, False, f))([jnp.asarray(f) for f in feats],
-                                                                       jnp.asarray(focal))
+    # eager: a jit of the whole decoder with the interpret-mode tail costs ~45 s
+    # of XLA compile per dtype on a cold cache, twice the eager run
+    ref = jdec.apply(variables, [jnp.asarray(f) for f in feats], False, jnp.asarray(focal))
     dec = _port_decoder(variables, getattr(torch, dtype), "always")
     with torch.inference_mode():
         outs = dec([_nchw(f) for f in feats], torch.from_numpy(focal))
