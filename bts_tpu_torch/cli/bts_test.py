@@ -8,22 +8,24 @@ PNGs (KITTI x256 / NYU x1000) into ``--out_path`` (default
 ``result_<model_name>``), with optional colormapped previews
 (``--save_cmap``) and per-scale LPG maps (``--save_lpg``).
 
-``--checkpoint_path`` names a torch ``state_dict`` file, as
-``utils/weights.py::state_dict_from_jax`` and ``torch.save`` write it.
+``--checkpoint_path`` names one of three things (:func:`read_weights`):
+a checkpoint directory that ``bts_main`` fills (its latest ``<step>.pt``),
+one such trainer file (its ``"model"``), or a bare torch ``state_dict`` file,
+as ``utils/weights.py::state_dict_from_jax`` and ``torch.save`` write it.
 Without one, the seeded initialisation is used.  :func:`main` runs on
 ``--device`` (default ``cuda``; it raises when there is no card, and
 ``--device cpu`` runs on the CPU).  The loader and PNG I/O
 (``bts_tpu_torch.data``, Pillow) are imported only by :func:`main`.
 
     python -m bts_tpu_torch.cli.bts_test @arguments/arguments_test_eigen.txt \\
-        --checkpoint_path state_dict.pt
+        --checkpoint_path runs/bts_eigen_v2/ckpt
 """
 
 from __future__ import annotations
 
 import os
 import sys
-from typing import Iterable, Iterator, Tuple
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +33,7 @@ import torch
 from bts_tpu_torch.config import adopt_sidecar_geometry, parse_args, require_device
 from bts_tpu_torch.data.augment import eval_preprocess
 from bts_tpu_torch.models.bts import create_model, set_float32_precision
+from bts_tpu_torch.utils.checkpoint import CheckpointManager
 from bts_tpu_torch.utils.weights import load_state_dict
 
 
@@ -46,6 +49,22 @@ def predict(cfg, model, batches: Iterable[dict], device) -> Iterator[Tuple[torch
             focal = torch.as_tensor(batch["focal"]).to(device) if use_focal else None
             outs = model(image, focal)
         yield outs
+
+
+def read_weights(path: str) -> Tuple[dict, Optional[int]]:
+    """The model weights at ``path`` and their step: the latest step of a
+    checkpoint directory, a trainer file ``{"model", "optimizer",
+    "scheduler", "step"}``, or a bare ``state_dict`` (step None).  A missing
+    path or a directory without a checkpoint raises FileNotFoundError.  Read
+    on the CPU: a trainer file's optimizer state never reaches the card, and
+    ``load_state_dict`` copies the weights into the model's device."""
+    if os.path.isdir(path):
+        state = CheckpointManager(path).restore()
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in state:  # a trainer file
+        return state["model"], int(state["step"])
+    return state, None
 
 
 def pred_name(image_path: str, data_path: str) -> str:
@@ -78,13 +97,15 @@ def main(argv=None):
     cfg = adopt_sidecar_geometry(cfg)  # trained-run stride-2 geometry, if recorded
     device = require_device(cfg)
     print(f"[bts_tpu_torch] device {device}")
+    # read first, so a bad path fails before the model is built
+    weights, step = read_weights(cfg.checkpoint_path) if cfg.checkpoint_path else (None, None)
     model = create_model(cfg, device)
-    if cfg.checkpoint_path:
-        sd = torch.load(cfg.checkpoint_path, map_location=device, weights_only=True)
-        load_state_dict(model, sd)
-        print(f"[bts_tpu_torch] loaded {cfg.checkpoint_path}")
-    else:
+    if weights is None:
         print("[bts_tpu_torch] WARNING: no --checkpoint_path, using random init")
+    else:
+        load_state_dict(model, weights)  # strict
+        at = "" if step is None else f" @ step {step}"
+        print(f"[bts_tpu_torch] restored {cfg.checkpoint_path}{at}")
     loader = BtsDataLoader(cfg, "test")
     out_dir = cfg.out_path or f"result_{cfg.model_name}"
     os.makedirs(os.path.join(out_dir, "raw"), exist_ok=True)

@@ -13,19 +13,36 @@
 // the column offset and v = (y % k - (k-1)/2) / k the row offset.  The output
 // is depth / max_depth (the max_depth factors of n4 and of the scaling cancel).
 //
-// What bounds it: it reads 12*B*h*w bytes and writes 4*B*H*W = 4*k*k*B*h*w
-// bytes, so it is store-bound (k = 8: 21x more bytes out than in).  Design:
-// one block covers 256 consecutive output pixels of one row, one thread per
-// pixel, so each warp stores 128 contiguous bytes.  The 256/k cells under the
-// segment are transformed once per block into shared memory (not once per
-// pixel), and each cell's 12 input bytes come from L2 for the k rows that
-// share it.  The TPU kernel's 0/1 selector matmuls were a way to repeat
-// elements on the MXU; here a thread indexes its cell as x / k directly.
+// What bounds it: it reads 3 values per cell (12*B*h*w bytes in f32, 6 in
+// bf16) and writes 4*B*H*W = 4*k*k*B*h*w bytes, so it is store-bound (k = 8:
+// 21x more bytes out than in).  The first design (one 256-thread block per
+// 256 pixels of one output row, one float stored per thread) reached 8-12%
+// of that bound: 16,896 short blocks per config-4 head, each waiting on a
+// global load, then on the transform in 256/k of its threads, then on a
+// __syncthreads() before its one store; the transform of a cell row was
+// recomputed for each of its k output rows, and every pixel divided twice
+// for patch offsets that depend only on x % k and y % k.
+//
+// Design: a lane owns 4 consecutive output columns (a column group) and
+// stores them as one float4 in each of the k rows of its cell row, so a
+// warp's store is 512 contiguous bytes; k = 8: two lanes share a cell,
+// k = 4: one cell per lane, k = 2: two cells per lane.  A warp's work item
+// is (cell row b*h + cy, 32 column groups); each lane transforms its cells
+// once, in registers, and reuses them for all k rows; its 4 column offsets
+// are computed once and each row offset once per row, not per pixel.  One
+// warp per item, 8 per block (a config-4 head: 528 to 2,112 blocks, 4 KB
+// of stores per warp at k = 8 to 1 KB at k = 2), and the block scheduler
+// keeps the card full.  raw is read in its own dtype (f32 or bf16,
+// converted in registers: exact) through its strides.  Where a row's pitch
+// is not a multiple of 4 floats (k = 2, odd w), odd rows are not 16-byte
+// aligned and the lane stores two float2 instead.  Every per-pixel
+// operation (spherical_cell, patch_offset, lpg_value) is the first
+// design's, in the same order, so the output is bit for bit the same.
 //
 // K3 replaces lpg_pallas.py::_fwd_kernel (launched by _fwd_call, reached
-// through lpg, the public local_planar_guidance op): the same kernel body on
-// a plane (B, h, w, 4) = (n1, n2, n3, n4) read as it is, without the
-// spherical transform (lpg_fwd_kernel<false>).
+// through lpg, the public local_planar_guidance op): the same kernel on a
+// plane (B, h, w, 4) = (n1, n2, n3, n4) read as it is, without the
+// spherical transform (lpg_fwd_kernel<false, K, In>).
 //
 // K5 replaces bts_tpu/ops/tail_pallas.py::_phase_lpg_kernel (launched by
 // _phase_lpg_call, reached through lpg_phase_planes on the fused decoder
@@ -35,14 +52,15 @@
 // integers, so u, v and every later operation are K1's: interleaving the
 // planes gives K1's output bit for bit.  One block covers 256 consecutive
 // phase columns V of one phase row U for all four planes; each store of a
-// warp is 128 contiguous bytes of one plane.  Bound as K1: the same bytes.
+// warp is 128 contiguous bytes of one plane (K1's first launch shape).
+// Bound as K1: the same bytes.
 //
 // Rounding: products and sums use the _rn intrinsics in the order of the
 // plain PyTorch version (lpg_cuda.py::lpg_fused_plain), so that no multiply-add
 // is contracted; expf / sinf / cosf are the accurate library functions (the
 // build uses no --use_fast_math).
 //
-// K2 (lpg_bwd_kernel<K, false, Out>) replaces the TPU kernel
+// K2 (lpg_bwd_kernel<K, false, kVec, T>) replaces the TPU kernel
 // lpg_pallas.py::_fused_bwd_kernel (launched by _fused_bwd_call, reached
 // through _lpg_fused_bwd, the VJP of lpg_fused).  For each low-res cell it
 // sums the cotangent g over the cell's k x k pixels into the cotangents of
@@ -54,17 +72,24 @@
 // and chains them through the spherical transform at low resolution into
 // d(raw) (B, h, w, 3), written in raw's dtype.  What bounds it: it reads g,
 // 4*B*H*W bytes, and writes 12*B*h*w bytes or fewer, so it is read-bound.
-// Design: one thread per cell, a (32 x 8)-cell block, so a warp covers 32
-// neighbouring cells of one cell row and reads k*k*32 contiguous floats of g
-// per patch row group; k is a template argument, so the k*k loads of a cell
-// are unrolled and in flight together.  The cell's n1..n4s are recomputed
-// from raw, as the TPU kernel does, so the forward saves nothing at full
-// resolution.  d(raw) goes to a (B, 3, h, w)-contiguous buffer (the NCHW
-// layout of the reduction conv's output, so its backward gets it without a
-// copy); the TPU kernel's transposed 0/1 selector matmuls were its way to sum
-// patches on the MXU and have no counterpart here.
+// The first design (one thread per cell in a 32 x 8-cell block, k*k scalar
+// loads each) reached 32% of that bound: at k = 8 each warp-wide load touched
+// 32 sectors for 128 useful bytes, and the k = 8 head had 288 blocks, ~560
+// threads per SM.  Design: a lane loads V = 4 consecutive floats of a patch
+// row (V = 2 at k = 2) as one vector, k rows at once, so a warp's load is
+// 512 (256) contiguous bytes; at k = 8 two lanes share a cell and add their
+// partial sums with __shfl_xor_sync.  A warp's work item is (cell row, 16 or
+// 32 cells), one warp per item as in K1.  A g whose strides or base do not
+// allow the vector (a sliced view) is read by the same kernel's scalar-load
+// instance (kVec false).
+// raw is read in its dtype.  The cell's n1..n4s are recomputed from raw, as
+// the TPU kernel does, so the forward saves nothing at full resolution.
+// d(raw) goes to a (B, 3, h, w)-contiguous buffer (the NCHW layout of the
+// reduction conv's output, so its backward gets it without a copy); the TPU
+// kernel's transposed 0/1 selector matmuls were its way to sum patches on
+// the MXU and have no counterpart here.
 //
-// K4 (lpg_bwd_kernel<K, true, Out>) replaces lpg_pallas.py::_bwd_kernel
+// K4 (lpg_bwd_kernel<K, true, kVec, T>) replaces lpg_pallas.py::_bwd_kernel
 // (launched by _bwd_call, reached through _lpg_bwd, the VJP of lpg): K2's
 // patch sums on a plane read as it is, written as d(plane) (B, h, w, 4) in
 // the plane's dtype, as _lpg_bwd stacks and casts them.  Read-bound as K2.
@@ -75,7 +100,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // output pixels per block; a multiple of every k
+constexpr int kThreads = 256;  // K5: output pixels per block; a multiple of every k
+constexpr int kWarps = 8;      // K1-K4: warps per block, each on its own work item
 constexpr float kPiOver3 = 1.04719755119659774615f;  // float(pi / 3)
 constexpr float kTwoPi = 6.28318530717958647693f;    // float(2 * pi)
 
@@ -83,18 +109,23 @@ __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 // (n1, n2, n3, n4s) of one cell from raw (x0, x1, x2) at p, channel stride sc.
-__device__ __forceinline__ float4 spherical_cell(const float* p, int64_t sc) {
-  const float th = __fmul_rn(sigmoid(p[0]), kPiOver3);
-  const float ph = __fmul_rn(sigmoid(p[sc]), kTwoPi);
+template <typename In>
+__device__ __forceinline__ float4 spherical_cell(const In* p, int64_t sc) {
+  const float th = __fmul_rn(sigmoid(to_float(p[0])), kPiOver3);
+  const float ph = __fmul_rn(sigmoid(to_float(p[sc])), kTwoPi);
   const float st = sinf(th), ct = cosf(th);
   const float sp = sinf(ph), cp = cosf(ph);
-  return make_float4(__fmul_rn(st, cp), __fmul_rn(st, sp), ct, sigmoid(p[2 * sc]));
+  return make_float4(__fmul_rn(st, cp), __fmul_rn(st, sp), ct, sigmoid(to_float(p[2 * sc])));
 }
 
 // (n1, n2, n3, n4) of one cell of a plane at p, channel stride sc.
-__device__ __forceinline__ float4 plane_cell(const float* p, int64_t sc) {
-  return make_float4(p[0], p[sc], p[2 * sc], p[3 * sc]);
+template <typename In>
+__device__ __forceinline__ float4 plane_cell(const In* p, int64_t sc) {
+  return make_float4(to_float(p[0]), to_float(p[sc]), to_float(p[2 * sc]), to_float(p[3 * sc]));
 }
 
 // n4 / (n1*u + n2*v + n3), in the plain version's order
@@ -108,31 +139,54 @@ __device__ __forceinline__ float patch_offset(int i, int k) {
   return __fdiv_rn((float)i - 0.5f * (float)(k - 1), (float)k);
 }
 
-// K1 (kRaw: in = raw (B, h, w, 3), spherical transform) and K3 (in = plane
-// (B, h, w, 4)), f32 read through element strides (sb, sh, sw, sc), so a
-// permuted NCHW tensor needs no copy.  out: (B, h*k, w*k) f32, contiguous.
-template <bool kRaw>
-__global__ void __launch_bounds__(kThreads)
-lpg_fwd_kernel(const float* __restrict__ in, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
-               float* __restrict__ out, int h, int w, int k) {
-  __shared__ float4 cell[kThreads / 2];  // k >= 2
-  const int W = w * k;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
-  const int x0 = blockIdx.x * kThreads;  // a multiple of k
-  const int c0 = x0 / k;
-  const int t = threadIdx.x;
-
-  if (t < kThreads / k && c0 + t < w) {
-    const float* p = in + b * sb + (int64_t)(y / k) * sh + (int64_t)(c0 + t) * sw;
-    cell[t] = kRaw ? spherical_cell(p, sc) : plane_cell(p, sc);
+// (n1, n2, n3, n4s) of a cell of raw, or (n1..n4) of a cell of a plane, at p.
+template <bool kRaw, typename In>
+__device__ __forceinline__ float4 cell_at(const In* p, int64_t sc) {
+  if constexpr (kRaw) {
+    return spherical_cell(p, sc);
+  } else {
+    return plane_cell(p, sc);
   }
-  __syncthreads();
+}
 
-  const int x = x0 + t;
-  if (x >= W) return;
-  out[((int64_t)b * h * k + y) * W + x] =
-      lpg_value(cell[t / k], patch_offset(x % k, k), patch_offset(y % k, k));
+// K1 (kRaw: in = raw (B, h, w, 3), spherical transform) and K3 (in = plane
+// (B, h, w, 4)), read in its dtype In through element strides (sb, sh, sw,
+// sc), so a permuted NCHW tensor needs no copy.  out: (B, h*k, w*k) f32,
+// contiguous, 16-byte aligned.  One warp per work item (cell row b*h + cy,
+// 32 groups of 4 output columns): items = B * h * ceil(w*k / 128).
+template <bool kRaw, int K, typename In>
+__global__ void __launch_bounds__(kWarps * 32)
+lpg_fwd_kernel(const In* __restrict__ in, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
+               float* __restrict__ out, int h, int w, int items) {
+  const int item = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int W = w * K;
+  const int chunks = (W + 127) / 128;
+  const int row = item / chunks;  // b * h + cy
+  const int x0 = ((item - row * chunks) * 32 + threadIdx.x % 32) * 4;  // the lane's first column
+  if (item >= items || x0 >= W) return;
+  const int b = row / h, cy = row - b * h, cx = x0 / K;
+  const In* p = in + b * sb + (int64_t)cy * sh + (int64_t)cx * sw;
+  const float4 c0 = cell_at<kRaw>(p, sc);
+  float4 c1 = c0;  // k = 2: columns 2, 3 are the next cell's (none past an odd w)
+  if (K == 2 && cx + 1 < w) c1 = cell_at<kRaw>(p + sw, sc);
+  float u[4];  // the four columns' offsets
+#pragma unroll
+  for (int j = 0; j < 4; ++j) u[j] = patch_offset((x0 + j) % K, K);
+
+  float* o = out + (int64_t)row * K * W + x0;
+  const bool vec = K > 2 || W % 4 == 0;  // rows 16-byte aligned; whole groups
+#pragma unroll
+  for (int r = 0; r < K; ++r, o += W) {
+    const float v = patch_offset(r, K);
+    const float4 val = make_float4(lpg_value(c0, u[0], v), lpg_value(c0, u[1], v),
+                                   lpg_value(c1, u[2], v), lpg_value(c1, u[3], v));
+    if (vec) {
+      *reinterpret_cast<float4*>(o) = val;
+    } else {  // k = 2, odd w: 8-byte aligned; the last group of a row is half
+      *reinterpret_cast<float2*>(o) = make_float2(val.x, val.y);
+      if (x0 + 2 < W) *reinterpret_cast<float2*>(o + 2) = make_float2(val.z, val.w);
+    }
+  }
 }
 
 // K5: raw (B, h, w, 3) f32 through element strides; out (B, 4, h*k/2, w*k/2)
@@ -169,9 +223,6 @@ lpg_phase_kernel(const float* __restrict__ raw, int64_t sb, int64_t sh, int64_t 
   }
 }
 
-constexpr int kBwdCellsX = 32;  // cells of one row per block (a warp)
-constexpr int kBwdCellsY = 8;   // cell rows per block
-
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -181,152 +232,234 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// V consecutive floats of g at p (column stride gw): one vector load where
+// kVec (gw == 1 and p aligned to 4*V bytes), else V scalar loads.
+template <int V, bool kVec>
+__device__ __forceinline__ void load_cols(const float* p, int64_t gw, float (&x)[V]) {
+  if constexpr (kVec && V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    x[0] = q.x, x[1] = q.y, x[2] = q.z, x[3] = q.w;
+  } else if constexpr (kVec && V == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    x[0] = q.x, x[1] = q.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) x[j] = p[j * gw];
+  }
+}
+
 // K2 (kPlane false): in = raw (B, h, w, 3); dout = d(raw) (B, 3, h, w) contiguous.
 // K4 (kPlane true): in = plane (B, h, w, 4); dout = d(plane) (B, h, w, 4) contiguous.
-// in is f32 through element strides (sb, sh, sw, sc); g (B, h*k, w*k) f32
-// through element strides (gb, gh, gw).
-template <int K, bool kPlane, typename Out>
-__global__ void __launch_bounds__(kBwdCellsX * kBwdCellsY)
-lpg_bwd_kernel(const float* __restrict__ in, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
+// in and dout in dtype T (f32 or bf16), in through element strides (sb, sh,
+// sw, sc); g (B, h*k, w*k) f32 through element strides (gb, gh, gw), read
+// with vector loads where kVec.  items = B * h * chunks of a warp's cells.
+template <int K, bool kPlane, bool kVec, typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+lpg_bwd_kernel(const T* __restrict__ in, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
                const float* __restrict__ g, int64_t gb, int64_t gh, int64_t gw,
-               Out* __restrict__ dout, int h, int w) {
-  const int cx = blockIdx.x * kBwdCellsX + threadIdx.x;
-  const int cy = blockIdx.y * kBwdCellsY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (cx >= w || cy >= h) return;
-
-  const float* p = in + b * sb + (int64_t)cy * sh + (int64_t)cx * sw;
-  float n1, n2, n3, n4s, s0 = 0.f, s1 = 0.f, s2 = 0.f, st = 0.f, ct = 0.f, sp = 0.f, cp = 0.f;
-  if constexpr (kPlane) {
-    n1 = p[0], n2 = p[sc], n3 = p[2 * sc], n4s = p[3 * sc];
-  } else {
-    s0 = sigmoid(p[0]);
-    s1 = sigmoid(p[sc]);
-    s2 = sigmoid(p[2 * sc]);
-    const float th = s0 * kPiOver3;
-    const float ph = s1 * kTwoPi;
-    st = sinf(th), ct = cosf(th);
-    sp = sinf(ph), cp = cosf(ph);
-    n1 = st * cp, n2 = st * sp, n3 = ct, n4s = s2;
-  }
-
-  const float* gc = g + b * gb + (int64_t)(cy * K) * gh + (int64_t)(cx * K) * gw;
+               T* __restrict__ dout, int h, int w, int items) {
+  constexpr int V = K < 4 ? K : 4;  // patch columns per lane: a float4, a float2 at k = 2
+  constexpr int L = K / V;          // lanes per cell: 2 at k = 8, else 1
+  constexpr int kCellsPerWarp = 32 / L;
   constexpr float mid = 0.5f * (float)(K - 1);
+  // one warp per item, so every lane of a warp reaches the shuffles
+  const int item = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (item >= items) return;
+  const int lane = threadIdx.x % 32;
+  const int part = lane % L;  // the lane's V columns of each patch row
+  const int chunks = (w + kCellsPerWarp - 1) / kCellsPerWarp;
+  const int row = item / chunks;  // b * h + cy
+  const int cx = (item - row * chunks) * kCellsPerWarp + lane / L;
+  const int b = row / h, cy = row - b * h;
+  const bool valid = cx < w;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, st = 0.f, ct = 0.f, sp = 0.f, cp = 0.f;
   float dn1 = 0.f, dn2 = 0.f, dn3 = 0.f, dn4 = 0.f;
+  if (valid) {
+    // the patch's k rows of g first: in flight during the transform
+    const float* gc = g + b * gb + (int64_t)(cy * K) * gh + (int64_t)(cx * K + part * V) * gw;
+    float gv[K][V];
 #pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const float v = ((float)i - mid) / (float)K;  // row offset
-    float r1 = 0.f, r3 = 0.f, r4 = 0.f;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const float u = ((float)j - mid) / (float)K;  // column offset
-      const float inv = 1.0f / (n1 * u + n2 * v + n3);
-      const float ginv = gc[i * gh + j * gw] * inv;
-      const float c = -ginv * n4s * inv;
-      r1 += c * u;
-      r3 += c;
-      r4 += ginv;
+    for (int i = 0; i < K; ++i) load_cols<V, kVec>(gc + i * gh, gw, gv[i]);
+
+    const T* p = in + b * sb + (int64_t)cy * sh + (int64_t)cx * sw;
+    float n1, n2, n3, n4s;
+    if constexpr (kPlane) {
+      n1 = to_float(p[0]), n2 = to_float(p[sc]);
+      n3 = to_float(p[2 * sc]), n4s = to_float(p[3 * sc]);
+    } else {
+      s0 = sigmoid(to_float(p[0]));
+      s1 = sigmoid(to_float(p[sc]));
+      s2 = sigmoid(to_float(p[2 * sc]));
+      const float th = s0 * kPiOver3;
+      const float ph = s1 * kTwoPi;
+      st = sinf(th), ct = cosf(th);
+      sp = sinf(ph), cp = cosf(ph);
+      n1 = st * cp, n2 = st * sp, n3 = ct, n4s = s2;
     }
-    dn1 += r1;
-    dn2 += r3 * v;
-    dn3 += r3;
-    dn4 += r4;
+    float u[V];  // the lane's column offsets
+#pragma unroll
+    for (int j = 0; j < V; ++j) u[j] = ((float)(part * V + j) - mid) / (float)K;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const float v = ((float)i - mid) / (float)K;  // row offset
+      float r1 = 0.f, r3 = 0.f, r4 = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float inv = 1.0f / (n1 * u[j] + n2 * v + n3);
+        const float ginv = gv[i][j] * inv;
+        const float c = -ginv * n4s * inv;
+        r1 += c * u[j];
+        r3 += c;
+        r4 += ginv;
+      }
+      dn1 += r1;
+      dn2 += r3 * v;
+      dn3 += r3;
+      dn4 += r4;
+    }
   }
+#pragma unroll
+  for (int m = 1; m < L; m *= 2) {  // the cell's other columns, from its other lanes
+    dn1 += __shfl_xor_sync(0xffffffffu, dn1, m);
+    dn2 += __shfl_xor_sync(0xffffffffu, dn2, m);
+    dn3 += __shfl_xor_sync(0xffffffffu, dn3, m);
+    dn4 += __shfl_xor_sync(0xffffffffu, dn4, m);
+  }
+  if (!valid || part != 0) return;
   if constexpr (kPlane) {
-    Out* o = dout + (((int64_t)b * h + cy) * w + cx) * 4;
-    o[0] = from_float<Out>(dn1);
-    o[1] = from_float<Out>(dn2);
-    o[2] = from_float<Out>(dn3);
-    o[3] = from_float<Out>(dn4);
+    T* o = dout + (((int64_t)b * h + cy) * w + cx) * 4;
+    o[0] = from_float<T>(dn1);
+    o[1] = from_float<T>(dn2);
+    o[2] = from_float<T>(dn3);
+    o[3] = from_float<T>(dn4);
   } else {
     // chain through the spherical transform at low resolution
     const float dt = dn1 * (ct * cp) + dn2 * (ct * sp) - dn3 * st;
     const float dp = dn1 * (-st * sp) + dn2 * (st * cp);
     const int64_t plane = (int64_t)h * w;
-    Out* o = dout + (int64_t)b * 3 * plane + (int64_t)cy * w + cx;
-    o[0] = from_float<Out>(dt * (s0 * (1.0f - s0)) * kPiOver3);
-    o[plane] = from_float<Out>(dp * (s1 * (1.0f - s1)) * kTwoPi);
-    o[2 * plane] = from_float<Out>(dn4 * (s2 * (1.0f - s2)));
+    T* o = dout + (int64_t)b * 3 * plane + (int64_t)cy * w + cx;
+    o[0] = from_float<T>(dt * (s0 * (1.0f - s0)) * kPiOver3);
+    o[plane] = from_float<T>(dp * (s1 * (1.0f - s1)) * kTwoPi);
+    o[2 * plane] = from_float<T>(dn4 * (s2 * (1.0f - s2)));
   }
 }
 
-template <int K, bool kPlane>
-int launch_bwd(const float* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, const float* g,
-               int64_t gb, int64_t gh, int64_t gw, void* dout, int out_dtype, int B, int h, int w,
+// The grid for `warp_items` work items, one warp each.  (A grid of as many
+// blocks as the card holds, walking the items in a grid-stride loop, was
+// not faster at the config-4 heads: PERF.md.)
+inline int grid_for(int warp_items) { return (warp_items + kWarps - 1) / kWarps; }
+
+template <int K, bool kPlane, bool kVec, typename T>
+int launch_bwd(const void* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, const float* g,
+               int64_t gb, int64_t gh, int64_t gw, void* dout, int B, int h, int w,
                cudaStream_t stream) {
-  const dim3 block(kBwdCellsX, kBwdCellsY);
-  const dim3 grid((w + kBwdCellsX - 1) / kBwdCellsX, (h + kBwdCellsY - 1) / kBwdCellsY, B);
-  switch (out_dtype) {
-    case 0:
-      lpg_bwd_kernel<K, kPlane, float><<<grid, block, 0, stream>>>(
-          in, sb, sh, sw, sc, g, gb, gh, gw, static_cast<float*>(dout), h, w);
-      break;
-    case 1:
-      lpg_bwd_kernel<K, kPlane, __nv_bfloat16><<<grid, block, 0, stream>>>(
-          in, sb, sh, sw, sc, g, gb, gh, gw, static_cast<__nv_bfloat16*>(dout), h, w);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  constexpr int kCellsPerWarp = K == 8 ? 16 : 32;
+  const int items = B * h * ((w + kCellsPerWarp - 1) / kCellsPerWarp);
+  lpg_bwd_kernel<K, kPlane, kVec, T><<<grid_for(items), kWarps * 32, 0, stream>>>(
+      static_cast<const T*>(in), sb, sh, sw, sc, g, gb, gh, gw, static_cast<T*>(dout), h, w, items);
   return (int)cudaGetLastError();
 }
 
+// The vector-load instance where g allows it: unit column stride, and base,
+// batch and row pitches that keep every lane's V floats aligned to 4*V bytes.
+template <int K, bool kPlane, typename T>
+int backward_k(const void* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, const float* g,
+               int64_t gb, int64_t gh, int64_t gw, void* dout, int B, int h, int w,
+               cudaStream_t s) {
+  constexpr int V = K < 4 ? K : 4;
+  const bool vec = gw == 1 && gb % V == 0 && gh % V == 0 && (uintptr_t)g % (4 * V) == 0;
+  return vec ? launch_bwd<K, kPlane, true, T>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, B, h, w, s)
+             : launch_bwd<K, kPlane, false, T>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, B, h, w, s);
+}
+
+template <bool kPlane, typename T>
+int backward_t(const void* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, const float* g,
+               int64_t gb, int64_t gh, int64_t gw, void* dout, int B, int h, int w, int k,
+               cudaStream_t s) {
+  switch (k) {
+    case 2: return backward_k<2, kPlane, T>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, B, h, w, s);
+    case 4: return backward_k<4, kPlane, T>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, B, h, w, s);
+    case 8: return backward_k<8, kPlane, T>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, B, h, w, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool kPlane>
-int backward(const float* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, const float* g,
-             int64_t gb, int64_t gh, int64_t gw, void* dout, int out_dtype, int B, int h, int w,
+int backward(const void* in, int dtype, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
+             const float* g, int64_t gb, int64_t gh, int64_t gw, void* dout, int B, int h, int w,
              int k, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return backward_t<kPlane, float>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, B, h, w, k, s);
+    case 1: return backward_t<kPlane, __nv_bfloat16>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, B, h, w, k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kRaw, int K, typename In>
+int launch_fwd(const void* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, float* out, int B,
+               int h, int w, cudaStream_t stream) {
+  const int items = B * h * ((w * K + 127) / 128);
+  lpg_fwd_kernel<kRaw, K, In><<<grid_for(items), kWarps * 32, 0, stream>>>(
+      static_cast<const In*>(in), sb, sh, sw, sc, out, h, w, items);
+  return (int)cudaGetLastError();
+}
+
+template <bool kRaw, typename In>
+int forward_k(const void* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, float* out, int B,
+              int h, int w, int k, cudaStream_t s) {
   switch (k) {
-    case 2: return launch_bwd<2, kPlane>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, out_dtype, B, h, w, s);
-    case 4: return launch_bwd<4, kPlane>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, out_dtype, B, h, w, s);
-    case 8: return launch_bwd<8, kPlane>(in, sb, sh, sw, sc, g, gb, gh, gw, dout, out_dtype, B, h, w, s);
+    case 2: return launch_fwd<kRaw, 2, In>(in, sb, sh, sw, sc, out, B, h, w, s);
+    case 4: return launch_fwd<kRaw, 4, In>(in, sb, sh, sw, sc, out, B, h, w, s);
+    case 8: return launch_fwd<kRaw, 8, In>(in, sb, sh, sw, sc, out, B, h, w, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <bool kRaw>
-int forward(const float* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, float* out, int B,
-            int h, int w, int k, void* stream) {
-  if (k != 2 && k != 4 && k != 8) return (int)cudaErrorInvalidValue;
-  const dim3 grid((w * k + kThreads - 1) / kThreads, h * k, B);
-  lpg_fwd_kernel<kRaw><<<grid, kThreads, 0, (cudaStream_t)stream>>>(in, sb, sh, sw, sc, out, h, w, k);
-  return (int)cudaGetLastError();
+int forward(const void* in, int dtype, int64_t sb, int64_t sh, int64_t sw, int64_t sc, float* out,
+            int B, int h, int w, int k, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return forward_k<kRaw, float>(in, sb, sh, sw, sc, out, B, h, w, k, s);
+    case 1: return forward_k<kRaw, __nv_bfloat16>(in, sb, sh, sw, sc, out, B, h, w, k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError() (0 on
-// success).  out_dtype: 0 = f32, 1 = bf16.
+// success).  dtype: 0 = f32, 1 = bf16.
 
-// K1: raw (B, h, w, 3) -> depth / max_depth (B, h*k, w*k)
-extern "C" int lpg_fused_forward(const float* raw, int64_t sb, int64_t sh, int64_t sw,
+// K1: raw (B, h, w, 3) in `dtype` -> depth / max_depth (B, h*k, w*k)
+extern "C" int lpg_fused_forward(const void* raw, int dtype, int64_t sb, int64_t sh, int64_t sw,
                                  int64_t sc, float* out, int B, int h, int w, int k,
                                  void* stream) {
-  return forward<true>(raw, sb, sh, sw, sc, out, B, h, w, k, stream);
+  return forward<true>(raw, dtype, sb, sh, sw, sc, out, B, h, w, k, stream);
 }
 
-// K2: d(raw) (B, 3, h, w) of the fused head
-extern "C" int lpg_fused_backward(const float* raw, int64_t sb, int64_t sh, int64_t sw,
+// K2: d(raw) (B, 3, h, w) in `dtype`, raw's, of the fused head
+extern "C" int lpg_fused_backward(const void* raw, int dtype, int64_t sb, int64_t sh, int64_t sw,
                                   int64_t sc, const float* g, int64_t gb, int64_t gh, int64_t gw,
-                                  void* draw, int out_dtype, int B, int h, int w, int k,
-                                  void* stream) {
-  return backward<false>(raw, sb, sh, sw, sc, g, gb, gh, gw, draw, out_dtype, B, h, w, k, stream);
+                                  void* draw, int B, int h, int w, int k, void* stream) {
+  return backward<false>(raw, dtype, sb, sh, sw, sc, g, gb, gh, gw, draw, B, h, w, k, stream);
 }
 
-// K3: plane (B, h, w, 4) -> depth (B, h*k, w*k)
-extern "C" int lpg_forward(const float* plane, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
-                           float* out, int B, int h, int w, int k, void* stream) {
-  return forward<false>(plane, sb, sh, sw, sc, out, B, h, w, k, stream);
+// K3: plane (B, h, w, 4) in `dtype` -> depth (B, h*k, w*k)
+extern "C" int lpg_forward(const void* plane, int dtype, int64_t sb, int64_t sh, int64_t sw,
+                           int64_t sc, float* out, int B, int h, int w, int k, void* stream) {
+  return forward<false>(plane, dtype, sb, sh, sw, sc, out, B, h, w, k, stream);
 }
 
-// K4: d(plane) (B, h, w, 4)
-extern "C" int lpg_backward(const float* plane, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
-                            const float* g, int64_t gb, int64_t gh, int64_t gw, void* dplane,
-                            int out_dtype, int B, int h, int w, int k, void* stream) {
-  return backward<true>(plane, sb, sh, sw, sc, g, gb, gh, gw, dplane, out_dtype, B, h, w, k, stream);
+// K4: d(plane) (B, h, w, 4) in `dtype`, the plane's
+extern "C" int lpg_backward(const void* plane, int dtype, int64_t sb, int64_t sh, int64_t sw,
+                            int64_t sc, const float* g, int64_t gb, int64_t gh, int64_t gw,
+                            void* dplane, int B, int h, int w, int k, void* stream) {
+  return backward<true>(plane, dtype, sb, sh, sw, sc, g, gb, gh, gw, dplane, B, h, w, k, stream);
 }
 
-// K5: raw (B, h, w, 3) -> phase planes (B, 4, h*k/2, w*k/2)
+// K5: raw (B, h, w, 3) f32 -> phase planes (B, 4, h*k/2, w*k/2)
 extern "C" int lpg_phase_forward(const float* raw, int64_t sb, int64_t sh, int64_t sw,
                                  int64_t sc, float* out, int B, int h, int w, int k,
                                  void* stream) {

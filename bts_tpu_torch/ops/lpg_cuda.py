@@ -33,7 +33,7 @@ import torch
 from bts_tpu_torch.ops import _build
 
 SUPPORTED_K = (2, 4, 8)
-_OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # K2's output codes (the compute dtypes)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernels' dtype codes (the compute dtypes)
 
 
 def _spherical(x0, x1, x2):
@@ -146,18 +146,13 @@ def lpg_plane_bwd_plain(plane_eq: torch.Tensor, g: torch.Tensor, k: int) -> torc
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lpg_fused")
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.lpg_fused_forward.argtypes = [vp, i64, i64, i64, i64, vp, i32, i32, i32, i32, vp]
-    lib.lpg_fused_forward.restype = i32
-    lib.lpg_fused_backward.argtypes = [
-        vp, i64, i64, i64, i64, vp, i64, i64, i64, vp, i32, i32, i32, i32, i32, vp
-    ]
-    lib.lpg_fused_backward.restype = i32
-    lib.lpg_forward.argtypes = lib.lpg_fused_forward.argtypes
-    lib.lpg_forward.restype = i32
-    lib.lpg_phase_forward.argtypes = lib.lpg_fused_forward.argtypes
-    lib.lpg_phase_forward.restype = i32
-    lib.lpg_backward.argtypes = lib.lpg_fused_backward.argtypes
-    lib.lpg_backward.restype = i32
+    fwd = [vp, i32, i64, i64, i64, i64, vp, i32, i32, i32, i32, vp]
+    bwd = [vp, i32, i64, i64, i64, i64, vp, i64, i64, i64, vp, i32, i32, i32, i32, vp]
+    phase = [vp, i64, i64, i64, i64, vp, i32, i32, i32, i32, vp]  # K5: f32 raw, no dtype code
+    for name, argtypes in (("lpg_fused_forward", fwd), ("lpg_forward", fwd), ("lpg_phase_forward", phase),
+                           ("lpg_fused_backward", bwd), ("lpg_backward", bwd)):
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i32
     lib.lpg_error_string.argtypes = [i32]
     lib.lpg_error_string.restype = ctypes.c_char_p
     return lib
@@ -165,7 +160,8 @@ def _lib() -> ctypes.CDLL:
 
 def _check_raw(raw3: torch.Tensor, k: int, name: str, channels: int = 3) -> None:
     """What the kernels take: a CUDA float (B, h, w, channels) tensor, k in
-    SUPPORTED_K, a grid within CUDA's limits."""
+    SUPPORTED_K, and B*h*w*k below 2**31 (the kernels count work items,
+    rows and columns in int32)."""
     if raw3.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {raw3.device}")
     if raw3.dim() != 4 or raw3.shape[-1] != channels:
@@ -174,9 +170,9 @@ def _check_raw(raw3: torch.Tensor, k: int, name: str, channels: int = 3) -> None
         raise TypeError(f"{name}: raw must be floating point, got {raw3.dtype}")
     if k not in SUPPORTED_K:
         raise ValueError(f"{name}: k must be one of {SUPPORTED_K}, got {k}")
-    b, h, _, _ = raw3.shape
-    if h * k > 65535 or b > 65535:
-        raise ValueError(f"{name}: grid too large for (B={b}, H={h * k})")
+    b, h, w, _ = raw3.shape
+    if b * h * w * k >= 2**31:
+        raise ValueError(f"{name}: too large for the kernels' int32 indices: (B={b}, h={h}, w={w}, k={k})")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -189,39 +185,42 @@ def _stream(device) -> int:
 
 
 def _forward(entry: str, x: torch.Tensor, k: int, name: str, out_shape):
-    """Launch forward ``entry`` of the library on a checked CUDA input, read
-    as f32 through its strides (a permuted view is not copied), into a new
-    f32 ``out_shape`` buffer; returns it and whether a kernel launched."""
+    """Launch forward ``entry`` of the library on a checked CUDA input into a
+    new f32 ``out_shape`` buffer; returns it and whether a kernel launched.
+    The kernel reads x through its strides (a permuted view is not copied)
+    in its own dtype where that is f32 or bf16, else an f32 copy."""
     b, h, w, _ = x.shape
-    xf = x.float()
+    xk = x if x.dtype in _DTYPES else x.float()
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out, False
     with torch.cuda.device(x.device):
-        err = getattr(_lib(), entry)(xf.data_ptr(), *xf.stride(), out.data_ptr(), b, h, w, k,
-                                     _stream(x.device))
+        err = getattr(_lib(), entry)(xk.data_ptr(), _DTYPES[xk.dtype], *xk.stride(), out.data_ptr(),
+                                     b, h, w, k, _stream(x.device))
     _raise_on(err, name)
     return out, True
 
 
 def _backward(entry: str, x: torch.Tensor, g: torch.Tensor, k: int, name: str, out_shape):
     """Launch backward ``entry`` on a checked CUDA input and cotangent g
-    (B, h*k, w*k); the gradient buffer has ``out_shape`` and x's dtype."""
+    (B, h*k, w*k); the gradient buffer has ``out_shape`` and x's dtype.  The
+    kernel reads x in its dtype and g (f32) through their strides; it loads g
+    by vectors where g's strides and base allow it, else by scalars."""
     b, h, w, _ = x.shape
     if g.device != x.device or tuple(g.shape) != (b, h * k, w * k):
         raise ValueError(
             f"{name}: g must be {(b, h * k, w * k)} on {x.device}, got {tuple(g.shape)} on {g.device}"
         )
-    if x.dtype not in _OUT_DTYPES:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: input dtype {x.dtype} not supported")
-    xf, gf = x.float(), g.float()
+    gf = g.float()
     dx = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if dx.numel() == 0:
         return dx, False
     with torch.cuda.device(x.device):
         err = getattr(_lib(), entry)(
-            xf.data_ptr(), *xf.stride(), gf.data_ptr(), *gf.stride(), dx.data_ptr(),
-            _OUT_DTYPES[x.dtype], b, h, w, k, _stream(x.device),
+            x.data_ptr(), _DTYPES[x.dtype], *x.stride(), gf.data_ptr(), *gf.stride(), dx.data_ptr(),
+            b, h, w, k, _stream(x.device),
         )
     _raise_on(err, name)
     return dx, True
@@ -283,8 +282,8 @@ def lpg_plane_bwd(plane_eq: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tens
 
 
 class LpgFused(torch.autograd.Function):
-    """The fused head with K2 as its backward.  The f32 cast happens inside;
-    the Function saves raw3 itself, not its f32 copy."""
+    """The fused head with K2 as its backward.  The Function saves raw3
+    itself; the kernels read it in its own dtype."""
 
     @staticmethod
     def forward(ctx, raw3, k):

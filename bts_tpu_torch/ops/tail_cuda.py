@@ -32,8 +32,8 @@ from collections import OrderedDict
 import torch
 import torch.nn.functional as F
 
-from bts_tpu_torch.ops import _build
-from bts_tpu_torch.ops.lpg_cuda import _check_raw, _forward, _stream, lpg_fused_plain
+from bts_tpu_torch.ops import _build, lpg_cuda
+from bts_tpu_torch.ops.lpg_cuda import _check_raw, _raise_on, _stream, lpg_fused_plain
 
 CIN = 64  # iconv2 channels: bts_size 512
 PARAM_BYTES = 92688  # bytes of pack_tail_params' buffer (fused_tail.cu's PARAM_BYTES)
@@ -76,8 +76,17 @@ def lpg_phase_planes(raw3: torch.Tensor, k: int) -> torch.Tensor:
     _check_raw(raw3, k, "lpg_phase_planes")
     b, h, w, _ = raw3.shape
     kk = k // 2
-    out, launched = _forward("lpg_phase_forward", raw3, k, "lpg_phase_planes", (b, 4, h * kk, w * kk))
-    lpg_phase_planes.launches += launched
+    if h * kk > 65535 or b > 65535:  # K5's grid: (column blocks, phase rows, B)
+        raise ValueError(f"lpg_phase_planes: grid too large for (B={b}, Hh={h * kk})")
+    rf = raw3.float()  # K5 reads f32, through its strides
+    out = torch.empty((b, 4, h * kk, w * kk), dtype=torch.float32, device=raw3.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(raw3.device):
+        err = lpg_cuda._lib().lpg_phase_forward(rf.data_ptr(), *rf.stride(), out.data_ptr(), b, h, w, k,
+                                               _stream(raw3.device))
+    _raise_on(err, "lpg_phase_planes")
+    lpg_phase_planes.launches += 1
     return out
 
 

@@ -12,23 +12,31 @@ Phases, one JSON line each, then the result:
                 started together: lpg_fused.cu (K1 the fused LPG head
                 forward, K2 its backward, K3/K4 the public LPG op's forward
                 and backward, K5 the head as phase planes) and fused_tail.cu
-                (K6 the fused decoder tail), and fused_tail.cu again with
-                -DK6_STAGE_CLOCKS (K6's stage clocks); ptxas's registers and
-                spills of K6, and the count of HMMA (tensor-core)
-                instructions in the SASS (cuobjdump) of each of its two
-                instances (bf16 and f32 iconv2), which must be > 0.
+                (K6 the fused decoder tail), and a profiling build of
+                fused_tail.cu with -DK6_STAGE_CLOCKS (K6's stage clocks);
+                ptxas's registers and spills of every K1-K4 instance and of
+                K6, and the count of HMMA (tensor-core) instructions in the
+                SASS (cuobjdump) of each of K6's two instances (bf16 and f32
+                iconv2), which must be > 0.
 3. kernel     - K1 against its plain PyTorch version at the three shapes of
                 a 352x1216 forward and one ragged B=2 shape; rule rtol 2e-5,
                 atol 2e-6*max|ref| on pixels with |denominator| >= 1e-3 (the
                 excluded count is printed).  Times from CUDA events: device
                 time per call (batches of 50 calls queued behind a sleep
-                kernel) and the median single-call latency of 50 calls.
+                kernel) and the median single-call latency of 50 calls;
+                the kernel alone (its library entry called directly on the
+                same tensors), the wrapper's overhead and the share of the
+                bound the kernel alone reaches, one row per head.
 4. kernel_bwd - K2 against its plain version at the three head shapes of
                 the config-4 training step (b16, 352x704) and a ragged B=2
                 shape, with f32 and bf16 raw; rule rtol 2e-4,
                 atol 2e-5*max|ref| on cells whose k x k denominators all
                 have |den| >= 1e-3 (excluded cells counted).  K1 at the same
-                three shapes.  Times as phase 3, and each call's bound.
+                three shapes.  Times, the kernel alone, overhead, bound and
+                share as phase 3, one row per head and the per-step sums.
+                The device kernels one bf16 call of each wrapper launches
+                (torch.profiler): K1's and K2's own and nothing else, so
+                no cast of raw.
 5. kernel_lpg - K3 against its plain version at the three serving head
                 shapes (planes from plane_from_spherical, max_depth 80) and
                 the ragged shape, K1's rule; K4 at the three config-4 head
@@ -191,6 +199,15 @@ def ptxas_report(log: str, kernel: str) -> dict:
     return report
 
 
+def demangle(name: str) -> str:
+    """A mangled kernel name as C++ (cu++filt of the CUDA toolkit)."""
+    from bts_tpu_torch.ops import _build
+
+    filt = Path(_build.find_nvcc()).parent / "cu++filt"
+    return subprocess.run([str(filt), name], capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip()
+
+
 def _events():
     return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
@@ -247,6 +264,54 @@ def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
+def alone(row: dict, launch) -> None:
+    """The kernel launched directly (``launch``: the library call the
+    wrapper makes, on the same tensors, returning its error code) beside the
+    wrapper's time already in ``row``: kernel_only_ms, the wrapper's
+    overhead, and the share of the bound the kernel alone reaches."""
+    def fn():
+        check(launch() == 0, "direct launch failed")
+
+    row["kernel_only_ms"] = device_median_ms(fn, call_median_ms(fn))
+    row["wrapper_overhead_ms"] = row["ms"] - row["kernel_only_ms"]
+    row["share_of_bound"] = row["bound_ms"] / row["kernel_only_ms"]
+
+
+def k1_alone(lib, raw, k):
+    """K1 launched directly on raw as it is (its dtype and strides)."""
+    from bts_tpu_torch.ops.lpg_cuda import _DTYPES
+
+    b, h, w, _ = raw.shape
+    out = torch.empty((b, h * k, w * k), device=raw.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.lpg_fused_forward(raw.data_ptr(), _DTYPES[raw.dtype], *raw.stride(), out.data_ptr(),
+                                         b, h, w, k, stream)
+
+
+def k2_alone(lib, raw, g, k):
+    """K2 launched directly on raw and g as they are (dtypes and strides)."""
+    from bts_tpu_torch.ops.lpg_cuda import _DTYPES
+
+    b, h, w, _ = raw.shape
+    dx = torch.empty((b, 3, h, w), dtype=raw.dtype, device=raw.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.lpg_fused_backward(raw.data_ptr(), _DTYPES[raw.dtype], *raw.stride(), g.data_ptr(),
+                                          *g.stride(), dx.data_ptr(), b, h, w, k, stream)
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+            for _ in range(e.count)]
+
+
 def compare_lpg(out, ref, den) -> dict:
     """K1's rule on pixels whose denominator is not near zero."""
     keep = den.abs() >= DENOM_MIN
@@ -283,7 +348,7 @@ def _raw(b, h, w, k, dtype=torch.float32):
 
 
 def phase_kernel(card: str) -> None:
-    from bts_tpu_torch.ops.lpg_cuda import fused_denominator, lpg_fused_fwd, lpg_fused_plain
+    from bts_tpu_torch.ops.lpg_cuda import _lib, fused_denominator, lpg_fused_fwd, lpg_fused_plain
 
     rows = []
     for b, h, w, k in SLICE_SHAPES + [RAGGED_SHAPE]:
@@ -296,6 +361,7 @@ def phase_kernel(card: str) -> None:
         check(row["within_rule"], f"K1 disagrees with plain at {row}")
         row.update(timings(lambda: lpg_fused_fwd(raw, k), lambda: lpg_fused_plain(raw, k)))
         row.update(bound(4 * b * h * w * 3 + 4 * b * h * w * k * k, K1_OPS_PER_PIXEL * b * h * w * k * k))
+        alone(row, k1_alone(_lib(), raw, k))
         row["card"] = card
         rows.append(row)
     emit({"phase": "kernel", "rule": f"rtol {RTOL}, atol {ATOL_SCALE}*max|ref|, |den|>={DENOM_MIN}",
@@ -303,10 +369,12 @@ def phase_kernel(card: str) -> None:
 
 
 def phase_kernel_bwd(card: str) -> dict:
-    """K2 (and K1) at the training step's head shapes; returns the per-step
-    sums for the result line."""
+    """K2 (and K1) at the training step's head shapes, each head's row with
+    the kernel alone, the wrapper's overhead and the share of the bound; the
+    device kernels one bf16 call of each wrapper launches.  Returns the
+    per-step sums for the result line."""
     from bts_tpu_torch.ops.lpg_cuda import (
-        fused_denominator, lpg_fused_bwd, lpg_fused_bwd_plain, lpg_fused_fwd, lpg_fused_plain,
+        _lib, fused_denominator, lpg_fused_bwd, lpg_fused_bwd_plain, lpg_fused_fwd, lpg_fused_plain,
     )
 
     rows, total = [], {"K1": {}, "K2": {}}
@@ -331,6 +399,7 @@ def phase_kernel_bwd(card: str) -> dict:
             row.update(timings(lambda: lpg_fused_bwd(raw, g, k), lambda: lpg_fused_bwd_plain(raw, g, k)))
             row.update(bound(4 * b * h * w * k * k + 2 * 3 * esize * b * h * w,
                              K2_OPS_PER_PIXEL * b * h * w * k * k))
+            alone(row, k2_alone(_lib(), raw, g, k))
             rows.append(row)
 
             frow = {"kernel": "K1", "shape": [b, h, w, 3], "k": k, "raw_dtype": str(dtype)[6:]}
@@ -340,21 +409,33 @@ def phase_kernel_bwd(card: str) -> dict:
             frow.update(timings(lambda: lpg_fused_fwd(raw, k), lambda: lpg_fused_plain(raw, k)))
             frow.update(bound(3 * esize * b * h * w + 4 * b * h * w * k * k,
                               K1_OPS_PER_PIXEL * b * h * w * k * k))
+            alone(frow, k1_alone(_lib(), raw, k))
             rows.append(frow)
             if on_path:
                 for name, r in (("K2", row), ("K1", frow)):
                     t = total[name].setdefault(str(dtype)[6:], dict.fromkeys(
-                        ("ms", "plain_ms", "bound_ms", "max_abs_err"), 0.0))
-                    for key in ("ms", "plain_ms", "bound_ms"):
+                        ("ms", "kernel_only_ms", "plain_ms", "bound_ms", "max_abs_err"), 0.0))
+                    for key in ("ms", "kernel_only_ms", "plain_ms", "bound_ms"):
                         t[key] += r[key]
                     t["max_abs_err"] = max(t["max_abs_err"], r["max_abs_err"])
                     t["bound_by"] = r["bound_by"]
+                    t["wrapper_overhead_ms"] = t["ms"] - t["kernel_only_ms"]
+                    t["share_of_bound"] = t["bound_ms"] / t["kernel_only_ms"]
     for row in rows:
         row["card"] = card
+    # bf16 raw: each wrapper launches its kernel and nothing else (no cast)
+    b, h, w, k = TRAIN_SHAPES[0]
+    raw = _raw(b, h, w, k, torch.bfloat16)
+    g = torch.ones((b, h * k, w * k), device="cuda")
+    launched = {"K1": device_kernels(lambda: lpg_fused_fwd(raw, k)),
+                "K2": device_kernels(lambda: lpg_fused_bwd(raw, g, k))}
     emit({"phase": "kernel_bwd",
           "rule": f"K2: rtol {GRAD_RTOL} (bf16: 2^-7), atol {GRAD_ATOL_SCALE}*max|ref| on cells "
                   f"with every |den|>={DENOM_MIN}; K1: rtol {RTOL}, atol {ATOL_SCALE}*max|ref|",
-          "shapes": rows, "per_training_step": total})
+          "shapes": rows, "per_training_step": total, "device_kernels_per_bf16_call": launched})
+    for key, kernel in (("K1", "lpg_fwd_kernel"), ("K2", "lpg_bwd_kernel")):
+        check(len(launched[key]) == 1 and kernel in launched[key][0],
+              f"{key}'s wrapper on bf16 raw launched {launched[key]}")
     return total
 
 def plane_denominator(plane, k):
@@ -983,18 +1064,20 @@ def main() -> int:
     jobs = [(name, ()) for name in SOURCES] + [("fused_tail", ("K6_STAGE_CLOCKS",))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda job: _build.build(*job), jobs))
-    built, clocks_lib = dict(zip(SOURCES, libs)), libs[-1].path
+    built, clocks_lib = dict(zip(SOURCES, libs)), libs[2].path
     lpg_cuda._lib()
     tail_cuda._lib()
     # K6 does its upconv and iconv1 on the tensor cores: HMMA in its SASS
     # (one instance for bf16 iconv2, one for f32)
     k6 = {"hmma_instructions": sass_count(built["fused_tail"].path, "fused_tail_kernel", "HMMA"),
           "ptxas": ptxas_report(built["fused_tail"].log, "fused_tail_kernel")}
+    # registers and spills of each K1/K3 (lpg_fwd_kernel<kRaw, K, In>) and
+    # K2/K4 (lpg_bwd_kernel<K, kPlane, ...>) instance, by demangled name
+    lpg = {demangle(n): r for kernel in ("lpg_fwd_kernel", "lpg_bwd_kernel")
+           for n, r in ptxas_report(built["lpg_fused"].log, kernel).items()}
     emit({"phase": "build", "sources": SOURCES, "kernels": {key: name for name, key, _, _ in KERNELS},
-          "seconds": {**{n: b.seconds for n, b in built.items()}, "fused_tail_stage_clocks": libs[-1].seconds},
-          "ptxas": {n: [l.strip() for l in b.log.splitlines() if "registers" in l or "spill" in l]
-                    for n, b in built.items()},
-          "fused_tail_kernel": k6})
+          "seconds": {**{n: b.seconds for n, b in built.items()}, "fused_tail_stage_clocks": libs[2].seconds},
+          "lpg_ptxas": lpg, "fused_tail_kernel": k6})
     check(len(k6["hmma_instructions"]) == 2 and all(n > 0 for n in k6["hmma_instructions"].values()),
           f"fused_tail_kernel without HMMA instructions: {k6['hmma_instructions']}")
 

@@ -48,8 +48,12 @@ def _assert_rule(out, ref, raw, k):
     torch.testing.assert_close(out[keep], ref[keep], rtol=2e-5, atol=2e-6 * scale)
 
 
-@pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (4, 88, 304, 1), (2, 176, 608, 1), (8, 13, 37, 2)])
+@pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (4, 88, 304, 1), (2, 176, 608, 1), (8, 13, 37, 2),
+                                     (2, 13, 37, 2), (2, 176, 352, 16)])
 def test_kernel_matches_plain(card, k, h, w, b):
+    """K1 at the serving heads, a ragged B=2 at k = 8 and at k = 2 (odd w: a
+    row pitch of 2 mod 4 floats), and the largest config-4 head (16,896 work
+    items, more than the card holds warps at once)."""
     raw = _raw(card, b, h, w, seed=k)
     out = lpg_cuda.lpg_fused(raw, k)
     torch.cuda.synchronize()
@@ -60,6 +64,14 @@ def test_kernel_matches_plain(card, k, h, w, b):
 def test_kernel_takes_bf16_as_the_model_passes_it(card):
     raw = _raw(card, 1, 22, 76, dtype=torch.bfloat16)
     _assert_rule(lpg_cuda.lpg_fused(raw, 4), lpg_cuda.lpg_fused_plain(raw, 4), raw, 4)
+
+
+@pytest.mark.parametrize("k,h,w", [(8, 13, 37), (4, 22, 76), (2, 13, 37)])
+def test_kernel_reads_bf16_raw_as_its_f32_copy(card, k, h, w):
+    """K1 reads bf16 raw in its dtype; bf16 -> f32 is exact, so the map is
+    bit for bit the one of its f32 copy."""
+    raw = _raw(card, 2, h, w, seed=k, dtype=torch.bfloat16)
+    assert torch.equal(lpg_cuda.lpg_fused(raw, k), lpg_cuda.lpg_fused(raw.float(), k))
 
 
 def test_each_launch_counts_once(card, monkeypatch):
@@ -80,9 +92,11 @@ def _assert_grad_rule(out, ref, raw, k):
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-5 * ref.abs().max().item())
 
 
-@pytest.mark.parametrize("k,h,w,b", [(8, 44, 88, 16), (4, 88, 176, 16), (2, 176, 352, 16), (8, 13, 37, 2)])
+@pytest.mark.parametrize("k,h,w,b", [(8, 44, 88, 16), (4, 88, 176, 16), (2, 176, 352, 16), (8, 13, 37, 2),
+                                     (2, 13, 37, 2)])
 def test_backward_kernel_matches_plain(card, k, h, w, b):
-    """K2 at the config-4 training shapes (b16, 352x704) and a ragged B=2."""
+    """K2 at the config-4 training shapes (b16, 352x704), a ragged B=2, and
+    k = 2 with odd w (g's row pitch 2 mod 4 floats)."""
     raw = _raw(card, b, h, w, seed=k)
     g = torch.from_numpy(np.random.default_rng(k + 1).standard_normal((b, h * k, w * k), dtype=np.float32)).to(card)
     out = lpg_cuda.lpg_fused_bwd(raw, g, k)
@@ -103,6 +117,20 @@ def test_backward_kernel_takes_bf16_raw_and_returns_bf16(card):
     keep = (lpg_cuda.fused_denominator(raw, 4).reshape(b, h, 4, w, 4).abs() >= 1e-3).all(4).all(2)
     torch.testing.assert_close(out.float()[keep], ref.float()[keep], rtol=2 ** -7,
                                atol=2e-5 * ref.float()[keep].abs().max().item())
+
+
+@pytest.mark.parametrize("k", [8, 2])
+def test_backward_kernel_reads_a_misaligned_g(card, k):
+    """A g one float off its allocation (a sliced view) does not allow K2's
+    vector loads: the scalar-load instance reads it, in the same order, so
+    the gradient is bit for bit the one of an aligned copy."""
+    b, h, w = 2, 13, 37
+    raw = _raw(card, b, h, w, seed=k)
+    flat = torch.randn(b * h * k * w * k + 1, device=card)
+    g = flat[1:].view(b, h * k, w * k)
+    out = lpg_cuda.lpg_fused_bwd(raw, g, k)
+    assert torch.equal(out, lpg_cuda.lpg_fused_bwd(raw, g.clone(), k))
+    _assert_grad_rule(out, lpg_cuda.lpg_fused_bwd_plain(raw, g, k), raw, k)
 
 
 def test_one_backward_launch_per_head(card, monkeypatch):

@@ -258,7 +258,7 @@ PORT_MODULES = (
     "bts_tpu_torch.utils.weights", "bts_tpu_torch.utils.torch_converter",
     "bts_tpu_torch.utils.checkpoint", "bts_tpu_torch.utils.summary", "bts_tpu_torch.utils.preemption",
     "bts_tpu_torch.training.optimizer", "bts_tpu_torch.training.trainer",
-    "bts_tpu_torch.cli.bts_test",
+    "bts_tpu_torch.cli.bts_test", "bts_tpu_torch.tools.lpg_launch_shapes",
 )
 NEEDS_PIL = ("bts_tpu_torch.data.crops", "bts_tpu_torch.data.depth_io",
              "bts_tpu_torch.data.dataloader", "bts_tpu_torch.cli.bts_main", "chip_smoke")
@@ -304,10 +304,34 @@ def test_cli_raises_on_cuda_without_a_card(cli, monkeypatch, tmp_path):
         main(["--filenames_file", str(tmp_path / "split.txt"), "--device", "cuda"])
 
 
-@pytest.mark.parametrize("with_checkpoint", [False, True])
-def test_cli_writes_uint16_predictions(tmp_path, with_checkpoint):
+def _save_checkpoint(form, model, tmp_path):
+    """``model``'s weights saved in checkpoint ``form``; returns the path
+    bts_test is given and the step it should report (None: none)."""
+    from bts_tpu_torch.utils.checkpoint import CheckpointManager
+
+    def trainer_state(sd, step):  # Trainer.state_dict()'s keys
+        return {"model": sd, "optimizer": {}, "scheduler": {}, "step": step}
+
+    sd = model.state_dict()
+    if form == "state_dict":
+        torch.save(sd, tmp_path / "sd.pt")
+        return tmp_path / "sd.pt", None
+    if form == "trainer_file":
+        torch.save(trainer_state(sd, 7), tmp_path / "7.pt")
+        return tmp_path / "7.pt", 7
+    # a directory with an older step of other weights: the latest is used
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    mgr.save(3, trainer_state({k: torch.zeros_like(v) for k, v in sd.items()}, 3))
+    mgr.save(5, trainer_state(sd, 5))
+    return tmp_path / "ckpt", 5
+
+
+@pytest.mark.parametrize("checkpoint", ["none", "state_dict", "trainer_file", "directory"])
+def test_cli_writes_uint16_predictions(tmp_path, checkpoint, capsys):
     """main() on two tiny KITTI PNGs writes uint16 depth x256 PNGs equal to
-    predict()'s final depth, from the seeded init or from a saved state_dict."""
+    predict()'s final depth, from the seeded init or from saved weights: a
+    bare state_dict, a trainer file, or the latest step of a checkpoint
+    directory."""
     from PIL import Image
 
     from bts_tpu.data.depth_io import depth_to_png
@@ -321,15 +345,18 @@ def test_cli_writes_uint16_predictions(tmp_path, with_checkpoint):
     (tmp_path / "split.txt").write_text("rgb/0.png None 721.5377\nrgb/1.png None 707.0493\n")
     cfg = Config(mode="test", encoder="densenet121_bts", bts_size=128, dataset="kitti",
                  compute_dtype="float32", seed=0)
-    model = create_model(cfg.replace(seed=1) if with_checkpoint else cfg)
+    model = create_model(cfg if checkpoint == "none" else cfg.replace(seed=1))
     argv = ["--encoder", "densenet121_bts", "--bts_size", "128", "--dataset", "kitti",
             "--data_path", str(tmp_path), "--filenames_file", str(tmp_path / "split.txt"),
             "--compute_dtype", "float32", "--out_path", str(tmp_path / "out"), "--save_lpg",
             "--use_native_loader", "never", "--device", "cpu"]
-    if with_checkpoint:
-        torch.save(model.state_dict(), tmp_path / "sd.pt")
-        argv += ["--checkpoint_path", str(tmp_path / "sd.pt")]
+    if checkpoint != "none":
+        path, step = _save_checkpoint(checkpoint, model, tmp_path)
+        argv += ["--checkpoint_path", str(path)]
     assert main(argv) == 0
+    if checkpoint != "none":
+        at = "" if step is None else f" @ step {step}"
+        assert f"restored {path}{at}\n" in capsys.readouterr().out
 
     # batch 1, as main() runs (the CPU conv's rounding depends on the batch)
     batches = [{"image": images[i : i + 1], "focal": np.array([f], np.float32)}
@@ -339,3 +366,16 @@ def test_cli_writes_uint16_predictions(tmp_path, with_checkpoint):
         assert png.dtype == np.uint16
         np.testing.assert_array_equal(png, depth_to_png(outs[4][0, 0].numpy(), "kitti"))
         assert (tmp_path / "out" / "lpg_8x8" / f"rgb_{i}.png").exists()
+
+
+def test_cli_refuses_an_empty_checkpoint_directory(tmp_path):
+    """An empty --checkpoint_path directory raises; bts_test never serves
+    the random init in its place."""
+    from bts_tpu_torch.cli.bts_test import main
+
+    (tmp_path / "ckpt").mkdir()
+    (tmp_path / "split.txt").write_text("")
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        main(["--encoder", "densenet121_bts", "--bts_size", "128", "--filenames_file",
+              str(tmp_path / "split.txt"), "--checkpoint_path", str(tmp_path / "ckpt"),
+              "--use_native_loader", "never", "--device", "cpu"])

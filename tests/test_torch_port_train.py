@@ -438,6 +438,29 @@ def test_bts_main_trains_resumes_and_retrains(tmp_path, capsys):
     assert retrained.latest_step() == 2 and retrained.restore()["step"] == 2
     assert os.path.exists(tmp_path / "runs" / "m2" / "config.json")
 
+    # bts_test serves the latest step of the directory bts_main filled
+    from bts_tpu_torch.cli import bts_test
+    from bts_tpu_torch.data.depth_io import depth_to_png
+
+    image = np.array(Image.open(tmp_path / "rgb" / "0.png"))[:64, :96]  # a multiple of 32
+    Image.fromarray(image).save(tmp_path / "rgb" / "t0.png")
+    (tmp_path / "test.txt").write_text("rgb/t0.png None 700.0\n")
+    out = tmp_path / "pred"
+    assert bts_test.main(["--device", "cpu", "--encoder", "densenet121_bts", "--bts_size", "128",
+                          "--compute_dtype", "float32", "--dataset", "kitti",
+                          "--data_path", kw["data_path"], "--filenames_file", str(tmp_path / "test.txt"),
+                          "--use_native_loader", "never", "--checkpoint_path", str(ckpt.directory),
+                          "--out_path", str(out)]) == 0
+    assert f"restored {ckpt.directory} @ step 4" in capsys.readouterr().out
+    cfg = Config(mode="test", encoder="densenet121_bts", bts_size=128, dataset="kitti",
+                 compute_dtype="float32")
+    model = create_model(cfg)
+    model.load_state_dict(ckpt.restore()["model"])
+    batch = {"image": image[None], "focal": np.array([700.0], np.float32)}
+    outs = next(bts_test.predict(cfg, model, [batch], "cpu"))
+    np.testing.assert_array_equal(np.array(Image.open(out / "raw" / "rgb_t0.png")),
+                                  depth_to_png(outs[4][0, 0].numpy(), "kitti"))
+
 
 def test_pretrained_encoder_loads_a_torchvision_state_dict(tmp_path):
     """--pretrained_model: a torchvision DenseNet state_dict, classifier and
