@@ -16,7 +16,9 @@ the reference each module is tested against.  The layout mirrors it:
   bts_tpu/training/{optimizer,trainer}  -> bts_tpu_torch/training/...
   bts_tpu/utils/{torch_converter,checkpoint,summary,preemption}
                                         -> bts_tpu_torch/utils/... (+ weights.py)
-  bts_tpu/cli/{bts_test,bts_main}.py    -> bts_tpu_torch/cli/...
+  bts_tpu/evaluation/{metrics,best}.py  -> bts_tpu_torch/evaluation/...
+  bts_tpu/cli/{bts_test,bts_main,bts_eval}.py
+                                        -> bts_tpu_torch/cli/...
 
 The port keeps its own copies of the JAX package's jax-free host modules
 (config, weight-name mapping, crops, depth PNG I/O) and imports nothing of

@@ -7,23 +7,30 @@
 Pipeline: args -> loader -> model / optimizer -> train steps (augmentation,
 forward, silog, backward, AdamW) -> TensorBoard scalars and depth images,
 checkpoints every ``--save_freq`` steps and at the end, sample-exact resume,
-a config sidecar beside the checkpoints, and a SIGTERM stop that saves and
-exits 0.  It runs on ``--device`` (default ``cuda``; it raises when there
-is no card).
+a config sidecar beside the checkpoints, a SIGTERM stop that saves and
+exits 0, and (``--do_online_eval``) the 9 metrics on the eval split every
+``--eval_freq`` steps with a per-metric best checkpoint under
+``ckpt_best/<metric>/``.  It runs on ``--device`` (default ``cuda``; it
+raises when there is no card).
+
+    python -m bts_tpu_torch.cli.bts_main @arguments/arguments_train_nyu.txt --do_online_eval \
+        --data_path_eval D --gt_path_eval D --filenames_file_eval F --eval_freq 500
 
 Not ported yet (each raises ``NotImplementedError``; ROADMAP.md): more than
 one device (``--num_devices > 1``), ``--spatial_shards[_w]``,
-``--shard_opt_state``, ``--do_online_eval``, ``--debug_nans`` and the
-non-DenseNet encoders (``create_model``).
+``--shard_opt_state`` and ``--debug_nans``.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import shutil
 import sys
+import threading
 import time
 
+import numpy as np
 import torch
 
 from bts_tpu_torch.config import (
@@ -34,6 +41,8 @@ from bts_tpu_torch.config import (
 )
 from bts_tpu_torch.data.augment import eval_preprocess
 from bts_tpu_torch.data.dataloader import BtsDataLoader
+from bts_tpu_torch.evaluation.best import BestCheckpoints, BestTracker
+from bts_tpu_torch.evaluation.metrics import METRIC_NAMES
 from bts_tpu_torch.models.bts import create_model, set_float32_precision
 from bts_tpu_torch.training.trainer import Trainer
 from bts_tpu_torch.utils.checkpoint import CheckpointManager, restore_for_retrain
@@ -45,7 +54,6 @@ def _refuse_unported(cfg) -> None:
         "--num_devices > 1 (data parallel, 'DDP/ZeRO')": cfg.num_devices > 1,
         "--spatial_shards[_w] ('Modules to port' 7)": cfg.spatial_shards > 1 or cfg.spatial_shards_w > 1,
         "--shard_opt_state ('DDP/ZeRO')": cfg.shard_opt_state,
-        "--do_online_eval ('online eval + best checkpoints')": cfg.do_online_eval,
         "--debug_nans": cfg.debug_nans,
     }
     for what, asked in unported.items():
@@ -54,13 +62,101 @@ def _refuse_unported(cfg) -> None:
 
 
 def load_pretrained_encoder(model, path: str) -> None:
-    """--pretrained_model: a torchvision DenseNet ``state_dict`` into the
-    encoder (the port's encoder has torchvision's names); the classifier
-    and ``num_batches_tracked`` entries are not part of the encoder."""
+    """--pretrained_model: a torchvision DenseNet, ResNet, ResNeXt or
+    MobileNetV2 ``state_dict`` into the encoder (the port's encoders have
+    torchvision's names); the classifier (``classifier.``, ``fc.``) and the
+    ``num_batches_tracked`` entries are not part of the encoder."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = {k: v for k, v in sd.items()
-          if not k.startswith("classifier.") and not k.endswith("num_batches_tracked")}
+          if not k.startswith(("classifier.", "fc.")) and not k.endswith("num_batches_tracked")}
     model.encoder.load_state_dict(sd, strict=True)
+
+
+def online_eval(model, cfg, device, max_samples: int = 0):
+    """Reference ``online_eval()``: forward the eval split, return the mean
+    of the 9 metrics (None when no sample has a valid pixel); counterpart of
+    ``bts_tpu/cli/bts_main.py::online_eval``.
+
+    Metrics are taken against the full-resolution gt (a KB-cropped
+    prediction is zero-padded back onto it), so the garg/eigen crop selects
+    the pixels bts_eval and the published protocol select.  Frames go
+    ``--batch_size`` at a time (KITTI without ``--do_kb_crop`` at batch 1:
+    raw frames differ in size between drives); the tail batch is padded by
+    repeating its last sample and the padded predictions are dropped.  A
+    thread decodes image and gt PNGs ahead of the card, and the forward of
+    batch i+1 is queued on the card before the host computes the metrics of
+    batch i, with one device->host copy per batch.  The model runs in eval
+    mode (train-mode BN without statistics updates under
+    ``--bn_no_track_stats``, as its training does), under
+    ``torch.inference_mode``, and goes back to train mode after.
+    """
+    if not cfg.filenames_file_eval:
+        print("[bts_tpu_torch] --do_online_eval needs --filenames_file_eval; skipping")
+        return None
+    from bts_tpu_torch.cli.bts_eval import masked_errors, pad_pred_to_gt
+    from bts_tpu_torch.data.dataloader import load_sample, parse_filenames_file
+    from bts_tpu_torch.data.depth_io import read_depth_png
+
+    samples = parse_filenames_file(cfg.filenames_file_eval, cfg.data_path_eval, cfg.gt_path_eval)
+    if max_samples:
+        samples = samples[:max_samples]
+    samples = [s for s in samples if s.depth_path is not None]
+    bs = 1 if cfg.dataset == "kitti" and not cfg.do_kb_crop else max(1, cfg.batch_size)
+    q: queue.Queue = queue.Queue(maxsize=2)
+
+    def producer():
+        try:
+            buf = []
+
+            def flush(count):
+                buf.extend([buf[-1]] * (bs - len(buf)))  # pad the tail batch
+                q.put((np.stack([x[0] for x in buf]), np.array([x[1] for x in buf], np.float32),
+                       [x[2] for x in buf], count))
+                buf.clear()
+
+            for s in samples:
+                img, _, focal = load_sample(s, cfg.dataset, cfg.do_kb_crop, need_depth=False,
+                                            border_crop=False)
+                buf.append((img, focal, read_depth_png(s.depth_path, cfg.dataset)))
+                if len(buf) == bs:
+                    flush(bs)
+            if buf:
+                flush(len(buf))
+        except Exception as e:  # surface loader errors on the consumer side
+            q.put(e)
+        q.put(None)
+
+    threading.Thread(target=producer, daemon=True).start()
+    accum = []
+
+    def finish(pred, gts, count):
+        preds = pred.cpu().numpy()  # one device->host copy per batch
+        for j in range(count):
+            p = pad_pred_to_gt(preds[j], gts[j].shape, cfg) if cfg.do_kb_crop else preds[j]
+            errs = masked_errors(gts[j], p, cfg)
+            if errs is not None:
+                accum.append(errs)
+
+    use_focal = cfg.dataset == "kitti"
+    model.train(cfg.bn_no_track_stats)
+    try:
+        with torch.inference_mode():
+            pending = None
+            while (item := q.get()) is not None:
+                if isinstance(item, Exception):
+                    raise item
+                imgs, focals, gts, count = item
+                image = eval_preprocess(torch.from_numpy(imgs).to(device)).permute(0, 3, 1, 2)
+                focal = torch.from_numpy(focals).to(device) if use_focal else None
+                pred = model(image.contiguous(), focal)[4][:, 0]
+                if pending is not None:
+                    finish(*pending)
+                pending = (pred, gts, count)
+            if pending is not None:
+                finish(*pending)
+    finally:
+        model.train()
+    return np.mean(np.stack(accum), axis=0) if accum else None
 
 
 def main(argv=None):
@@ -110,7 +206,20 @@ def main(argv=None):
             trainer.load_state_dict(mgr.restore(map_location=device))
             print(f"[bts_tpu_torch] resumed @ step {trainer.step}")
 
+    # the best value of each metric across online evals, resume-safe in a
+    # JSON sidecar, and a per-metric best checkpoint (evaluation/best.py)
+    best_tracker = BestTracker(logdir)
+    best_ckpts = BestCheckpoints(os.path.join(logdir, "ckpt_best"))
+    if cfg.retrain and best_tracker.best:
+        # a step-0 run must not compete against the old run's bar
+        best_tracker.reset()
+        best_ckpts.reset()
+        print("[bts_tpu_torch] retrain: reset stale best-metric bar + best checkpoints")
+
     writer = SummaryWriter(logdir)
+    # reference flag: a separate TensorBoard directory for the eval scalars
+    eval_writer = (SummaryWriter(os.path.join(cfg.eval_summary_directory, cfg.model_name))
+                   if cfg.eval_summary_directory else writer)
     t0 = time.time()
     last = {"t": t0, "step": trainer.step}
     stream = loader.batches(num_epochs=1)
@@ -136,6 +245,21 @@ def main(argv=None):
         print(f"step {step}/{total_steps} loss {metrics['loss']:.4f} "
               f"| {ips:.1f} img/s | elapsed {now - t0:.0f}s", flush=True)
 
+    def on_eval(step):
+        results = online_eval(model, cfg, device)
+        if results is None:
+            return
+        eval_writer.scalars(step, dict(zip(("eval/" + n for n in METRIC_NAMES), results)))
+        print("eval: " + " ".join(f"{n}={v:.4f}" for n, v in zip(METRIC_NAMES, results)), flush=True)
+        # the sidecar is written only after the best checkpoints: a crash in
+        # between must not leave a bar whose checkpoints do not exist
+        improved = best_tracker.update(step, results, persist=False)
+        if improved:
+            best_ckpts.save(improved, step, model)
+            best_tracker.persist()
+            eval_writer.scalars(step, {f"eval/best_{n}": best_tracker.best[n]["value"] for n in improved})
+            print(f"[bts_tpu_torch] new best @ step {step}: {', '.join(improved)}", flush=True)
+
     guard = None
     if cfg.preempt_sync_freq > 0:
         from bts_tpu_torch.utils.preemption import PreemptionGuard
@@ -147,6 +271,7 @@ def main(argv=None):
             total_steps - trainer.step,
             on_metrics,
             lambda step: mgr.save(step, trainer.state_dict()),
+            on_eval if cfg.do_online_eval else None,
             profile_dir=os.path.join(logdir, "profile") if cfg.profile else None,
             should_stop=guard.should_stop if guard is not None else None,
         )
@@ -154,6 +279,8 @@ def main(argv=None):
         if guard is not None:
             guard.uninstall()
     mgr.save(trainer.step, trainer.state_dict())
+    if eval_writer is not writer:
+        eval_writer.close()
     writer.close()
     if guard is not None and guard.preempted:
         print(f"[bts_tpu_torch] preempted: checkpoint saved at step {trainer.step} "

@@ -11,7 +11,8 @@ paths relative to ``data_path`` / ``gt_path`` (absolute paths also work).
 A missing depth is spelled ``None`` in test-mode files.
 
 Modes: 'train' (seeded per-epoch shuffle, repeat, uint8 batches for the
-augmentation) and 'test' (images only); online eval is not ported yet.
+augmentation) and 'test' (images only); online eval decodes its split with
+:func:`load_sample` (``cli/bts_main.py::online_eval``).
 Not ported yet (ROADMAP.md): ArrayRecord shards and the native C++ decoder;
 ``--use_native_loader auto`` takes the PIL path here.
 """

@@ -88,7 +88,8 @@ def pad_stride2(x: torch.Tensor, kernel: int, style: str, value: float = 0.0) ->
 
 class Conv2d(nn.Conv2d):
     """Conv with an f32 weight, computed in ``dtype`` (flax's ``param_dtype``
-    f32 with ``dtype`` = compute).  ``padding`` defaults to stride-1 SAME."""
+    f32 with ``dtype`` = compute).  ``padding`` defaults to stride-1 SAME;
+    ``groups`` > 1 is a grouped conv (ResNeXt, depthwise)."""
 
     def __init__(
         self,
@@ -99,6 +100,7 @@ class Conv2d(nn.Conv2d):
         stride: int = 1,
         padding: Optional[int] = None,
         dilation: int = 1,
+        groups: int = 1,
         bias: bool = True,
         dtype: torch.dtype = torch.float32,
     ):
@@ -106,7 +108,7 @@ class Conv2d(nn.Conv2d):
             padding = dilation * (kernel // 2)
         super().__init__(
             in_channels, out_channels, kernel,
-            stride=stride, padding=padding, dilation=dilation, bias=bias,
+            stride=stride, padding=padding, dilation=dilation, groups=groups, bias=bias,
         )
         self.dtype = dtype
 
@@ -114,7 +116,7 @@ class Conv2d(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.conv2d(
             x.to(self.dtype), self.weight.to(self.dtype), bias,
-            self.stride, self.padding, self.dilation,
+            self.stride, self.padding, self.dilation, self.groups,
         )
 
 

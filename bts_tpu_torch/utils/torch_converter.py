@@ -1,9 +1,9 @@
 """torchvision / upstream torch key names <-> the flax tree of ``bts_tpu``.
 
 The port's own copy of the numpy-only mapping part of
-``bts_tpu/utils/torch_converter.py``, for the encoders the port has (the port imports nothing of the JAX
-package; ``tests/test_torch_port_model.py`` holds the copy equal to the
-original).  The port's modules are named by the torch keys, so these
+``bts_tpu/utils/torch_converter.py``, for all seven encoders (the port
+imports nothing of the JAX package; ``tests/test_torch_port_model.py`` holds
+the copy equal to the original).  The port's modules are named by the torch keys, so these
 mappings are what carries a ``bts_tpu`` checkpoint over
 (``utils/weights.py``).
 
@@ -66,11 +66,75 @@ def densenet_mapping(block_config: Tuple[int, ...]) -> List[MapEntry]:
     return m
 
 
-# the encoders the port has; the JAX package's file maps the ResNets and
-# MobileNetV2 too, to be copied with their port
+def resnet_mapping(stage_sizes: Tuple[int, ...], downsample_first: bool = True) -> List[MapEntry]:
+    """torchvision resnet50/101 + resnext50_32x4d/resnext101_32x8d <->
+    bts_tpu.models.encoders.resnet (bottleneck-v1, global Bottleneck_j counter).
+
+    Our Bottleneck projects the residual when channels or stride change;
+    torchvision's 'downsample' exists on the same blocks (first of each
+    stage, including stage 0's channel expansion 64->256).
+    """
+    m: List[MapEntry] = [(("Conv_0", "kernel"), "conv1.weight", K_CONV)]
+    m += _bn(("BatchNorm_0",), "bn1")
+    j = 0
+    for stage, num_blocks in enumerate(stage_sizes):
+        for b in range(num_blocks):
+            src = f"layer{stage + 1}.{b}"
+            dst = f"Bottleneck_{j}"
+            j += 1
+            m.append(((dst, "Conv_0", "kernel"), f"{src}.conv1.weight", K_CONV))
+            m += _bn((dst, "BatchNorm_0"), f"{src}.bn1")
+            m.append(((dst, "Conv_1", "kernel"), f"{src}.conv2.weight", K_CONV))
+            m += _bn((dst, "BatchNorm_1"), f"{src}.bn2")
+            m.append(((dst, "Conv_2", "kernel"), f"{src}.conv3.weight", K_CONV))
+            m += _bn((dst, "BatchNorm_2"), f"{src}.bn3")
+            has_downsample = b == 0  # stage 0: channel expand; others: stride
+            if has_downsample:
+                m.append(((dst, "Conv_3", "kernel"), f"{src}.downsample.0.weight", K_CONV))
+                m += _bn((dst, "BatchNorm_3"), f"{src}.downsample.1")
+    return m
+
+
+_MBV2_CONFIG = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+                (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
+
+
+def mobilenetv2_mapping() -> List[MapEntry]:
+    """torchvision mobilenet_v2 <-> bts_tpu.models.encoders.mobilenetv2."""
+    m: List[MapEntry] = [(("Conv_0", "kernel"), "features.0.0.weight", K_CONV)]
+    m += _bn(("BatchNorm_0",), "features.0.1")
+    j = 0  # InvertedResidual counter (ours); torch features index = j+1
+    for t, c, n, s in _MBV2_CONFIG:
+        for i in range(n):
+            src = f"features.{j + 1}.conv"
+            dst = f"InvertedResidual_{j}"
+            j += 1
+            if t != 1:
+                m.append(((dst, "Conv_0", "kernel"), f"{src}.0.0.weight", K_CONV))
+                m += _bn((dst, "BatchNorm_0"), f"{src}.0.1")
+                dw, pw, pbn = f"{src}.1.0", f"{src}.2", f"{src}.3"
+                dwbn = f"{src}.1.1"
+                ci, bi = 1, 1
+            else:
+                dw, dwbn, pw, pbn = f"{src}.0.0", f"{src}.0.1", f"{src}.1", f"{src}.2"
+                ci, bi = 0, 0
+            m.append(((dst, f"Conv_{ci}", "kernel"), f"{dw}.weight", K_DEPTHWISE))
+            m += _bn((dst, f"BatchNorm_{bi}"), dwbn)
+            m.append(((dst, f"Conv_{ci + 1}", "kernel"), f"{pw}.weight", K_CONV))
+            m += _bn((dst, f"BatchNorm_{bi + 1}"), pbn)
+    m.append((("Conv_1", "kernel"), "features.18.0.weight", K_CONV))
+    m += _bn(("BatchNorm_1",), "features.18.1")
+    return m
+
+
 ENCODER_MAPPINGS = {
     "densenet121_bts": lambda: densenet_mapping((6, 12, 24, 16)),
     "densenet161_bts": lambda: densenet_mapping((6, 12, 36, 24)),
+    "resnet50_bts": lambda: resnet_mapping((3, 4, 6, 3)),
+    "resnet101_bts": lambda: resnet_mapping((3, 4, 23, 3)),
+    "resnext50_bts": lambda: resnet_mapping((3, 4, 6, 3)),
+    "resnext101_bts": lambda: resnet_mapping((3, 4, 23, 3)),
+    "mobilenetv2_bts": mobilenetv2_mapping,
 }
 
 

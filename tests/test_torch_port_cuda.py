@@ -49,11 +49,14 @@ def _assert_rule(out, ref, raw, k):
 
 
 @pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (4, 88, 304, 1), (2, 176, 608, 1), (8, 13, 37, 2),
-                                     (2, 13, 37, 2), (2, 176, 352, 16)])
+                                     (2, 13, 37, 2), (2, 176, 352, 16), (8, 52, 68, 4), (4, 104, 136, 4),
+                                     (2, 208, 272, 4), (2, 187, 621, 1)])
 def test_kernel_matches_plain(card, k, h, w, b):
     """K1 at the serving heads, a ragged B=2 at k = 8 and at k = 2 (odd w: a
-    row pitch of 2 mod 4 floats), and the largest config-4 head (16,896 work
-    items, more than the card holds warps at once)."""
+    row pitch of 2 mod 4 floats), the largest config-4 head (16,896 work
+    items, more than the card holds warps at once), the three config-3 heads
+    (NYU 416x544, b4), and the k = 2 head of a raw 374x1242 KITTI frame at
+    b1 (odd w)."""
     raw = _raw(card, b, h, w, seed=k)
     out = lpg_cuda.lpg_fused(raw, k)
     torch.cuda.synchronize()
@@ -93,10 +96,12 @@ def _assert_grad_rule(out, ref, raw, k):
 
 
 @pytest.mark.parametrize("k,h,w,b", [(8, 44, 88, 16), (4, 88, 176, 16), (2, 176, 352, 16), (8, 13, 37, 2),
-                                     (2, 13, 37, 2)])
+                                     (2, 13, 37, 2), (8, 52, 68, 4), (4, 104, 136, 4), (2, 208, 272, 4),
+                                     (2, 187, 621, 1)])
 def test_backward_kernel_matches_plain(card, k, h, w, b):
-    """K2 at the config-4 training shapes (b16, 352x704), a ragged B=2, and
-    k = 2 with odd w (g's row pitch 2 mod 4 floats)."""
+    """K2 at the config-4 training shapes (b16, 352x704), a ragged B=2, k = 2
+    with odd w (g's row pitch 2 mod 4 floats), the config-3 heads (NYU
+    416x544, b4) and the k = 2 head of a raw 374x1242 KITTI frame (odd w)."""
     raw = _raw(card, b, h, w, seed=k)
     g = torch.from_numpy(np.random.default_rng(k + 1).standard_normal((b, h * k, w * k), dtype=np.float32)).to(card)
     out = lpg_cuda.lpg_fused_bwd(raw, g, k)

@@ -244,7 +244,7 @@ def test_seeded_init_is_flax_like_and_reproducible():
 
 @pytest.mark.parametrize(
     "change,match",
-    [({"encoder": "resnet50_bts"}, "ROADMAP"), ({"spatial_shards": 2}, "ROADMAP")],
+    [({"spatial_shards_w": 2}, "ROADMAP"), ({"spatial_shards": 2}, "ROADMAP")],
 )
 def test_unported_options_raise(change, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -259,9 +259,12 @@ PORT_MODULES = (
     "bts_tpu_torch.utils.checkpoint", "bts_tpu_torch.utils.summary", "bts_tpu_torch.utils.preemption",
     "bts_tpu_torch.training.optimizer", "bts_tpu_torch.training.trainer",
     "bts_tpu_torch.cli.bts_test", "bts_tpu_torch.tools.lpg_launch_shapes",
+    "bts_tpu_torch.evaluation", "bts_tpu_torch.evaluation.metrics", "bts_tpu_torch.evaluation.best",
+    "bts_tpu_torch.models.encoders.resnet", "bts_tpu_torch.models.encoders.mobilenetv2",
 )
 NEEDS_PIL = ("bts_tpu_torch.data.crops", "bts_tpu_torch.data.depth_io",
-             "bts_tpu_torch.data.dataloader", "bts_tpu_torch.cli.bts_main", "chip_smoke")
+             "bts_tpu_torch.data.dataloader", "bts_tpu_torch.cli.bts_main", "bts_tpu_torch.cli.bts_eval",
+             "chip_smoke")
 
 
 def test_port_imports_no_jax_and_no_pil():
@@ -286,9 +289,10 @@ def test_converter_copy_matches_the_jax_package():
     from bts_tpu.utils import torch_converter as jtc
 
     assert TC.decoder_mapping(512) == jtc.decoder_mapping(512)
-    for name in ("densenet121_bts", "densenet161_bts"):
+    assert TC.ENCODER_MAPPINGS.keys() == jtc.ENCODER_MAPPINGS.keys()
+    for name in jtc.ENCODER_MAPPINGS:
         assert TC.ENCODER_MAPPINGS[name]() == jtc.ENCODER_MAPPINGS[name]()
-    assert TC.K_CONV == jtc.K_CONV and TC.K_DIRECT == jtc.K_DIRECT
+    assert (TC.K_CONV, TC.K_DEPTHWISE, TC.K_DIRECT) == (jtc.K_CONV, jtc.K_DEPTHWISE, jtc.K_DIRECT)
 
 
 @pytest.mark.parametrize("cli", ["bts_test", "bts_main"])
