@@ -14,11 +14,11 @@ the reference each module is tested against.  The layout mirrors it:
   bts_tpu/data/{augment,dataloader,crops,depth_io}.py
                                         -> bts_tpu_torch/data/...
   bts_tpu/training/{optimizer,trainer}  -> bts_tpu_torch/training/...
-  bts_tpu/utils/{torch_converter,checkpoint,summary,preemption}
+  bts_tpu/utils/{torch_converter,checkpoint,summary,preemption,serving}
                                         -> bts_tpu_torch/utils/... (+ weights.py)
   bts_tpu/evaluation/{metrics,best}.py  -> bts_tpu_torch/evaluation/...
-  bts_tpu/cli/{bts_test,bts_main,bts_eval}.py
-                                        -> bts_tpu_torch/cli/...
+  bts_tpu/cli/{bts_test,bts_main,bts_eval,bts_convert,bts_export,bts_serve,bts_sequence}.py
+                                        -> bts_tpu_torch/cli/... (export: torch.export)
 
 The port keeps its own copies of the JAX package's jax-free host modules
 (config, weight-name mapping, crops, depth PNG I/O) and imports nothing of

@@ -8,7 +8,7 @@ The best values persist in a JSON sidecar beside the checkpoints, so a
 resumed run competes against its own history; each improved metric gets a
 ``CheckpointManager(max_to_keep=1)`` under ``ckpt_best/<metric>/`` holding
 the weights only, ``{"model": state_dict, "step": step}``, which
-``cli/bts_test.py::read_weights`` restores.
+``utils/weights.py::read_weights`` restores.
 """
 
 from __future__ import annotations

@@ -7,3 +7,4 @@ from bts_tpu_torch.ops.lpg import (  # noqa: F401
 )
 from bts_tpu_torch.ops.lpg_cuda import lpg_fused, lpg_fused_plain  # noqa: F401
 from bts_tpu_torch.ops.resize import upsample_nearest_2x  # noqa: F401
+from bts_tpu_torch.ops import tail_cuda  # noqa: F401  (registers K5's and K6's ops)

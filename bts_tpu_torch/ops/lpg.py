@@ -89,8 +89,9 @@ def lpg_scaled_from_raw(
     is divided by it again, so neither path multiplies by it.
 
     ``use_pallas`` keeps the config's name for the kernel switch: "auto" and
-    "always" go through :class:`~bts_tpu_torch.ops.lpg_cuda.LpgFused`, which
-    launches K1 and, in the backward, K2 on a CUDA tensor (or raises);
+    "always" go through :func:`~bts_tpu_torch.ops.lpg_cuda.lpg_fused`, the
+    registered op that launches K1 and, in the backward, K2 on a CUDA tensor
+    (or raises);
     "never" selects the plain version, differentiated by autograd.  A CPU
     tensor always computes the plain versions.
     """

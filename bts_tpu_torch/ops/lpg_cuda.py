@@ -1,14 +1,19 @@
 """The LPG kernels on Hopper: the fused reduction_1x1 -> LPG head (forward
 K1, backward K2) and the LPG of an already-transformed plane (forward K3,
-backward K4), their wrappers, autograd Functions and plain PyTorch versions.
+backward K4), their wrappers, registered ops, autograd and plain PyTorch
+versions.
 
 Counterpart of ``bts_tpu/ops/lpg_pallas.py``: ``lpg_fused`` and its VJP (K1,
 K2), ``lpg`` and its VJP (K3, K4).  The public functions keep the JAX layout:
 raw (B, h, w, 3) or plane (B, h, w, 4) in any float dtype and any strides ->
 (B, h*k, w*k) float32.
 
-- :func:`lpg_fused` is differentiable (:class:`LpgFused`): its forward is
-  :func:`lpg_fused_fwd`, its backward :func:`lpg_fused_bwd`.
+- K1 and K2 are ``torch.library`` ops, ``bts_tpu_torch::lpg_fused_fwd`` and
+  ``bts_tpu_torch::lpg_fused_bwd``, so ``torch.export`` captures them:
+  each has a CUDA implementation (the kernel launch), a CPU one (the plain
+  version) and a fake one (the output's shape, dtype and strides).
+  :data:`lpg_fused` (K1) is the op itself and differentiable, with
+  :data:`lpg_fused_bwd` (K2) as its registered backward.
 - :func:`lpg_plane` is differentiable (:class:`Lpg`): its forward is
   :func:`lpg_plane_fwd`, its backward :func:`lpg_plane_bwd`.
 - Each wrapper launches its kernel (``csrc/lpg_fused.cu``) on CUDA tensors
@@ -226,13 +231,9 @@ def _backward(entry: str, x: torch.Tensor, g: torch.Tensor, k: int, name: str, o
     return dx, True
 
 
-def lpg_fused_fwd(raw3: torch.Tensor, k: int) -> torch.Tensor:
-    """Forward of the fused head, not differentiable: raw (B, h, w, 3) ->
-    depth/max_depth (B, h*k, w*k) f32.  A CPU tensor takes
-    :func:`lpg_fused_plain`; a CUDA tensor launches K1 on the current stream
-    and adds one to ``lpg_fused.launches``."""
-    if raw3.device.type == "cpu":
-        return lpg_fused_plain(raw3, k)
+def _k1_cuda(raw3: torch.Tensor, k: int) -> torch.Tensor:
+    """K1 on a CUDA tensor, on the current stream; adds one to
+    ``lpg_fused.launches``.  The CUDA implementation of :data:`lpg_fused`."""
     _check_raw(raw3, k, "lpg_fused")
     b, h, w, _ = raw3.shape
     out, launched = _forward("lpg_fused_forward", raw3, k, "lpg_fused", (b, h * k, w * k))
@@ -240,19 +241,59 @@ def lpg_fused_fwd(raw3: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
-def lpg_fused_bwd(raw3: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
-    """Backward of the fused head: raw (B, h, w, 3) and the cotangent g
-    (B, h*k, w*k) -> d(raw) (B, h, w, 3) in raw's dtype.  CPU tensors take
-    :func:`lpg_fused_bwd_plain`; CUDA tensors launch K2 on the current stream
-    and add one to ``lpg_fused_bwd.launches``.  On CUDA the result is the
-    (B, h, w, 3) view of a (B, 3, h, w)-contiguous buffer."""
-    if raw3.device.type == "cpu" and g.device.type == "cpu":
-        return lpg_fused_bwd_plain(raw3, g, k)
+# The fused head: raw (B, h, w, 3) -> depth/max_depth (B, h*k, w*k) f32,
+# differentiable, with lpg_fused_bwd (K2) as its registered backward.  A CPU
+# tensor takes lpg_fused_plain; a CUDA tensor launches K1 on the current
+# stream (_k1_cuda).
+lpg_fused = torch.library.custom_op("bts_tpu_torch::lpg_fused_fwd", _k1_cuda, mutates_args=(),
+                                    device_types="cuda")
+lpg_fused.register_kernel("cpu")(lpg_fused_plain)
+
+
+@lpg_fused.register_fake
+def _(raw3, k):
+    b, h, w, _ = raw3.shape
+    return raw3.new_empty((b, h * k, w * k), dtype=torch.float32)
+
+
+def _k2_cuda(raw3: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """K2 on CUDA tensors, on the current stream; adds one to
+    ``lpg_fused_bwd.launches``.  The CUDA implementation of
+    :data:`lpg_fused_bwd`."""
     _check_raw(raw3, k, "lpg_fused_bwd")
     b, h, w, _ = raw3.shape
     draw, launched = _backward("lpg_fused_backward", raw3, g, k, "lpg_fused_bwd", (b, 3, h, w))
     lpg_fused_bwd.launches += launched
     return draw.permute(0, 2, 3, 1)
+
+
+# Backward of the fused head: raw (B, h, w, 3) and the cotangent g
+# (B, h*k, w*k) -> d(raw) (B, h, w, 3) in raw's dtype, the (B, h, w, 3) view
+# of a (B, 3, h, w)-contiguous buffer (the fake implementation says so too,
+# for torch.export).  CPU tensors take lpg_fused_bwd_plain; CUDA tensors
+# launch K2 on the current stream (_k2_cuda).
+lpg_fused_bwd = torch.library.custom_op("bts_tpu_torch::lpg_fused_bwd", _k2_cuda, mutates_args=(),
+                                        device_types="cuda")
+lpg_fused_bwd.register_kernel("cpu")(lpg_fused_bwd_plain)
+
+
+@lpg_fused_bwd.register_fake
+def _(raw3, g, k):
+    b, h, w, _ = raw3.shape
+    return raw3.new_empty((b, 3, h, w)).permute(0, 2, 3, 1)
+
+
+def _k1_setup_context(ctx, inputs, output):
+    raw3, ctx.k = inputs
+    ctx.save_for_backward(raw3)
+
+
+def _k1_backward(ctx, g):
+    (raw3,) = ctx.saved_tensors
+    return lpg_fused_bwd(raw3, g, ctx.k), None
+
+
+lpg_fused.register_autograd(_k1_backward, setup_context=_k1_setup_context)
 
 
 def lpg_plane_fwd(plane_eq: torch.Tensor, k: int) -> torch.Tensor:
@@ -281,22 +322,6 @@ def lpg_plane_bwd(plane_eq: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tens
     return dplane
 
 
-class LpgFused(torch.autograd.Function):
-    """The fused head with K2 as its backward.  The Function saves raw3
-    itself; the kernels read it in its own dtype."""
-
-    @staticmethod
-    def forward(ctx, raw3, k):
-        ctx.k = k
-        ctx.save_for_backward(raw3)
-        return lpg_fused_fwd(raw3, k)
-
-    @staticmethod
-    def backward(ctx, g):
-        (raw3,) = ctx.saved_tensors
-        return lpg_fused_bwd(raw3, g, ctx.k), None
-
-
 class Lpg(torch.autograd.Function):
     """The LPG of a plane with K3 as its forward and K4 as its backward."""
 
@@ -310,12 +335,6 @@ class Lpg(torch.autograd.Function):
     def backward(ctx, g):
         (plane_eq,) = ctx.saved_tensors
         return lpg_plane_bwd(plane_eq, g, ctx.k), None
-
-
-def lpg_fused(raw3: torch.Tensor, k: int) -> torch.Tensor:
-    """Differentiable fused head: raw (B, h, w, 3) -> depth/max_depth
-    (B, h*k, w*k) f32; K1 forward and K2 backward on CUDA tensors."""
-    return LpgFused.apply(raw3, k)
 
 
 def lpg_plane(plane_eq: torch.Tensor, k: int) -> torch.Tensor:

@@ -4,7 +4,7 @@ PyTorch versions.  Counterpart of ``bts_tpu/ops/tail_pallas.py``, with its
 layouts: iconv2 (B, Hh, W2, 64), phase planes (B, 4, Hh, W2) f32, plane
 q = 2*py + pz holding full-resolution pixel (2u+py, 2v+pz).
 
-- :func:`lpg_phase_planes` (K5, ``csrc/lpg_fused.cu``) and
+- :data:`lpg_phase_planes` (K5, ``csrc/lpg_fused.cu``) and
   :func:`lpg_phase_planes_plain`: the fused LPG head's map as phase planes;
   ``interleave2x2`` of them is the head's map bit for bit.
 - :func:`fused_tail` (K6, ``csrc/fused_tail.cu``) and
@@ -16,7 +16,10 @@ q = 2*py + pz holding full-resolution pixel (2u+py, 2v+pz).
   :func:`pack_tail_params` lays them out as K6 reads them (bf16 mma.sync B
   fragments and f32 small parameters) and :func:`packed_tail_params` caches
   that buffer per weight version.
-- A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+- K5 and K6 are ``torch.library`` ops, ``bts_tpu_torch::lpg_phase_planes``
+  and ``bts_tpu_torch::fused_tail``, so ``torch.export`` captures them: a
+  CUDA implementation (the kernel launch), a CPU one (the plain version)
+  and a fake one (the outputs' shapes).  A CUDA tensor launches the kernel
   or raises.  Each launch adds one to ``lpg_phase_planes.launches`` or
   ``fused_tail.launches``.
 
@@ -66,13 +69,10 @@ def lpg_phase_planes_plain(raw3: torch.Tensor, k: int) -> torch.Tensor:
     return _split2x2(lpg_fused_plain(raw3, k))
 
 
-def lpg_phase_planes(raw3: torch.Tensor, k: int) -> torch.Tensor:
-    """raw (B, h, w, 3), any float dtype and strides -> (B, 4, h*k/2, w*k/2)
-    f32 phase planes of the fused LPG head's map.  A CPU tensor takes
-    :func:`lpg_phase_planes_plain`; a CUDA tensor launches K5 on the current
-    stream and adds one to ``lpg_phase_planes.launches``."""
-    if raw3.device.type == "cpu":
-        return lpg_phase_planes_plain(raw3, k)
+def _k5_cuda(raw3: torch.Tensor, k: int) -> torch.Tensor:
+    """K5 on a CUDA tensor, on the current stream; adds one to
+    ``lpg_phase_planes.launches``.  The CUDA implementation of
+    :data:`lpg_phase_planes`."""
     _check_raw(raw3, k, "lpg_phase_planes")
     b, h, w, _ = raw3.shape
     kk = k // 2
@@ -88,6 +88,21 @@ def lpg_phase_planes(raw3: torch.Tensor, k: int) -> torch.Tensor:
     _raise_on(err, "lpg_phase_planes")
     lpg_phase_planes.launches += 1
     return out
+
+
+# raw (B, h, w, 3), any float dtype and strides -> (B, 4, h*k/2, w*k/2) f32
+# phase planes of the fused LPG head's map.  A CPU tensor takes
+# lpg_phase_planes_plain; a CUDA tensor launches K5 on the current stream
+# (_k5_cuda).
+lpg_phase_planes = torch.library.custom_op("bts_tpu_torch::lpg_phase_planes", _k5_cuda, mutates_args=(),
+                                           device_types="cuda")
+lpg_phase_planes.register_kernel("cpu")(lpg_phase_planes_plain)
+
+
+@lpg_phase_planes.register_fake
+def _(raw3, k):
+    b, h, w, _ = raw3.shape
+    return raw3.new_empty((b, 4, h * (k // 2), w * (k // 2)), dtype=torch.float32)
 
 
 def tail_params(decoder) -> dict:
@@ -268,21 +283,24 @@ def _lib() -> ctypes.CDLL:
     return bind(_build.load("fused_tail"))
 
 
-def fused_tail(iconv2, d2ph, d4ph, d8ph, params):
-    """The fused tail: iconv2 (B, Hh, W2, 64) in any float dtype and layout,
-    d{2,4,8}ph (B, 4, Hh, W2) f32 phase planes (from
-    :func:`lpg_phase_planes`), ``params`` as :func:`tail_params` gives them
-    -> (final_sig_ph, d1x1_ph), each (B, 4, Hh, W2) f32: phase planes of
-    sigmoid(final logits) and of the depth_1x1 head.
+def _flat_params(params) -> list:
+    """:func:`tail_params`' dict as the op takes it: kernel, bias of each layer
+    in ``_TAIL_LAYERS`` order."""
+    return [params[n][key] for n in _TAIL_LAYERS for key in ("kernel", "bias")]
 
-    A CPU tensor takes :func:`fused_tail_plain`.  A CUDA tensor launches K6
-    on the current stream and adds one to ``fused_tail.launches``.  K6 reads
-    iconv2 through its strides (the decoder's NCHW activation arrives as a
-    permuted view), bf16 or f32 (another float dtype is cast to f32 first),
-    and rounds it to bf16 as it stages it, so nothing is copied; the packed
-    weights come from :func:`packed_tail_params`'s cache."""
-    if iconv2.device.type == "cpu":
-        return fused_tail_plain(iconv2, d2ph, d4ph, d8ph, params)
+
+def _params_dict(weights) -> dict:
+    """The inverse of :func:`_flat_params`."""
+    return {n: {"kernel": weights[2 * i], "bias": weights[2 * i + 1]} for i, n in enumerate(_TAIL_LAYERS)}
+
+
+def _k6_cuda(iconv2: torch.Tensor, d2ph: torch.Tensor, d4ph: torch.Tensor, d8ph: torch.Tensor,
+             weights: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 on CUDA tensors, on the current stream; adds one to
+    ``fused_tail.launches``.  ``weights``: the twelve tensors of
+    :func:`_flat_params`, packed here at run time (cached per weight
+    version by :func:`packed_tail_params`).  The CUDA implementation of the
+    op ``_k6``."""
     b, hh, w2, cin = iconv2.shape
     if iconv2.device.type != "cuda" or cin != CIN:
         raise ValueError(f"fused_tail: iconv2 must be (B, Hh, W2, {CIN}) on a card, got "
@@ -295,7 +313,7 @@ def fused_tail(iconv2, d2ph, d4ph, d8ph, params):
         raise ValueError(f"fused_tail: grid too large for (B={b}, Hh={hh})")
     x = iconv2 if iconv2.dtype in (torch.bfloat16, torch.float32) else iconv2.float()
     maps = [m.float().contiguous() for m in (d2ph, d4ph, d8ph)]
-    prm, small = packed_tail_params(params, iconv2.device)
+    prm, small = packed_tail_params(_params_dict(weights), iconv2.device)
     fin = torch.empty((b, 4, hh, w2), dtype=torch.float32, device=x.device)
     d1 = torch.empty_like(fin)
     if fin.numel() == 0:
@@ -309,6 +327,40 @@ def fused_tail(iconv2, d2ph, d4ph, d8ph, params):
         raise RuntimeError(f"fused_tail kernel launch failed: {_lib().fused_tail_error_string(err).decode()}")
     fused_tail.launches += 1
     return fin, d1
+
+
+_k6 = torch.library.custom_op("bts_tpu_torch::fused_tail", _k6_cuda, mutates_args=(),
+                              device_types="cuda")
+
+
+@_k6.register_kernel("cpu")
+def _(iconv2, d2ph, d4ph, d8ph, weights):
+    return fused_tail_plain(iconv2, d2ph, d4ph, d8ph, _params_dict(weights))
+
+
+@_k6.register_fake
+def _(iconv2, d2ph, d4ph, d8ph, weights):
+    b, hh, w2, _ = iconv2.shape
+    fin = iconv2.new_empty((b, 4, hh, w2), dtype=torch.float32)
+    return fin, torch.empty_like(fin)
+
+
+def fused_tail(iconv2, d2ph, d4ph, d8ph, params):
+    """The fused tail: iconv2 (B, Hh, W2, 64) in any float dtype and layout,
+    d{2,4,8}ph (B, 4, Hh, W2) f32 phase planes (from
+    :func:`lpg_phase_planes`), ``params`` as :func:`tail_params` gives them
+    -> (final_sig_ph, d1x1_ph), each (B, 4, Hh, W2) f32: phase planes of
+    sigmoid(final logits) and of the depth_1x1 head.
+
+    The registered op ``bts_tpu_torch::fused_tail``, which takes the twelve
+    weight tensors as inputs.  A CPU tensor takes :func:`fused_tail_plain`.
+    A CUDA tensor launches K6 on the current stream and adds one to
+    ``fused_tail.launches``.  K6 reads iconv2 through its strides (the
+    decoder's NCHW activation arrives as a permuted view), bf16 or f32
+    (another float dtype is cast to f32 first), and rounds it to bf16 as it
+    stages it, so nothing is copied; the packed weights come from
+    :func:`packed_tail_params`' cache."""
+    return _k6(iconv2, d2ph, d4ph, d8ph, _flat_params(params))
 
 
 # launches since the last reset, read by chip_smoke.py

@@ -1,15 +1,19 @@
-"""JAX variables -> the port's ``state_dict``, through the port's copy of
-the JAX package's mapping (``utils/torch_converter.py``: ``ENCODER_MAPPINGS``,
-``decoder_mapping``, ``flax_to_torch_tensor``)."""
+"""Model weights: JAX variables -> the port's ``state_dict``, through the
+port's copy of the JAX package's mapping (``utils/torch_converter.py``:
+``ENCODER_MAPPINGS``, ``decoder_mapping``, ``flax_to_torch_tensor``); the
+strict load; and the checkpoint restore that the serving entry points
+share (:func:`read_weights`, :func:`restore_model`)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import os
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from bts_tpu_torch.utils import torch_converter as tc
+from bts_tpu_torch.utils.checkpoint import CheckpointManager
 
 ENCODER_PREFIXES = ("DenseNet", "ResNet", "MobileNetV2")  # flax encoder subtree names
 
@@ -59,3 +63,39 @@ def load_state_dict(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor])
     does not keep."""
     sd = {k: v for k, v in state_dict.items() if not k.endswith("num_batches_tracked")}
     model.load_state_dict(sd, strict=True)
+
+
+def read_weights(path: str) -> Tuple[dict, Optional[int]]:
+    """The model weights at ``path`` and their step: the latest step of a
+    checkpoint directory, a trainer file ``{"model", "optimizer",
+    "scheduler", "step"}`` (or ``bts_convert``'s ``{"model", "step"}``), or
+    a bare ``state_dict`` (step None).  A missing path or a directory
+    without a checkpoint raises FileNotFoundError.  Read on the CPU: a
+    trainer file's optimizer state never reaches the card, and
+    ``load_state_dict`` copies the weights into the model's device."""
+    if os.path.isdir(path):
+        state = CheckpointManager(path).restore()
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in state:  # a trainer file
+        return state["model"], int(state["step"])
+    return state, None
+
+
+def restore_model(cfg, device):
+    """``create_model(cfg, device)`` with the weights of
+    ``cfg.checkpoint_path`` (:func:`read_weights`, read before the model is
+    built, so a bad path fails first; strict load), or the seeded
+    initialisation with a warning when there is no path.  Prints what it
+    restored."""
+    from bts_tpu_torch.models.bts import create_model
+
+    weights, step = read_weights(cfg.checkpoint_path) if cfg.checkpoint_path else (None, None)
+    model = create_model(cfg, device)
+    if weights is None:
+        print("[bts_tpu_torch] WARNING: no --checkpoint_path, using random init")
+    else:
+        load_state_dict(model, weights)
+        at = "" if step is None else f" @ step {step}"
+        print(f"[bts_tpu_torch] restored {cfg.checkpoint_path}{at}")
+    return model

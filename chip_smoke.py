@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (the literal and the fused decoder
 tail), its training paths (config 4 and config 3), the other encoders, the
-evaluation entry points and its public LPG op once on one NVIDIA GPU and
-check them.
+evaluation entry points, the serving entry points (convert, export, HTTP,
+sequence) and its public LPG op once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repo root; one CUDA card, nvcc
 
@@ -27,7 +27,10 @@ Phases, one JSON line each, then the result:
                 kernel) and the median single-call latency of 50 calls;
                 the kernel alone (its library entry called directly on the
                 same tensors), the wrapper's overhead and the share of the
-                bound the kernel alone reaches, one row per head.
+                bound the kernel alone reaches, one row per head; and the
+                op's CUDA implementation called directly (the wrapper
+                before K1 became a torch.library op): its times and the
+                dispatcher's share of the call latency.
 4. kernel_bwd - K2 against its plain version at the three head shapes of
                 the config-4 training step (b16, 352x704) and a ragged B=2
                 shape, with f32 and bf16 raw; rule rtol 2e-4,
@@ -122,9 +125,34 @@ Phases, one JSON line each, then the result:
                 eval (KB crop, garg crop, padded back to 375x1242) of the
                 config-4 state from phase 9 over 20 frames at b16: finite,
                 3 K1 launches per batch forward, images/s.
-14. result    - {"kernels": [...]}: all six kernels, launches by main path
-                (serve, serve_tail, train, op, encoders, train_nyu, eval;
-                each path's counts set to 0 just before it runs), and ms,
+14. serving   - DenseNet-161, bts_size 512, KITTI, seeded weights, f32:
+                an upstream-style full .pth ({"model": module.encoder.
+                base_model.* / module.decoder.*}) through bts_convert, read
+                back by read_weights equal to the source; bts_export at
+                352x1216 b4 and load_exported: 3 K1 per forward, depth
+                against bts_test.predict of the same weights <= 1e-4 *
+                max_depth; again with --fused_tail always (3 K5 + 1 K6, no
+                K1); artifact size, export and load seconds.  The kernels
+                at these b4 heads against use_pallas="never" on the same
+                frames (16 with the literal tail, 4 with the fused one):
+                the maps by K1's rule, the final depth 1e-5 relative (K6's
+                rule with the fused tail), and the exported depth by the
+                same rule.  bts_serve from the artifact on a free port:
+                /healthz, then 16 concurrent POST /v1/depth (PNG bodies,
+                ?focal=; half .npy within 1e-4 * max_depth of eager and 1e-5
+                relative of never, half PNG within 1 unit of depth_to_png of
+                each), fewer device calls than requests and 3 K1 per call,
+                requests/s and p50/p90 latency; the in-process backend
+                (checkpoint, no artifact) with 4 requests by the same rules;
+                shutdown with nothing left running; bts_sequence
+                --do_kb_crop b4 over 10 frames of 375x1242 (a padded tail of
+                2): 3 K1 per batch forward, each PNG within 1 unit of
+                bts_test's for the same frame, through the kernels and
+                through --use_pallas never; frames/s.
+15. result    - {"kernels": [...]}: all six kernels, launches by main path
+                (serve, serve_tail, train, op, encoders, train_nyu, eval,
+                export, serve_http, sequence; each path's counts set to 0
+                just before it runs), and ms,
                 plain_ms, bound_ms per the unit
                 named in "per" (K1, K2: a training step's three heads, bf16
                 raw; K3: the three serving heads; K4: the three config-4
@@ -181,6 +209,7 @@ NYU_EVAL_SHAPES = [(4, 60, 80, 8), (4, 120, 160, 4), (4, 240, 320, 2)]  # NYU on
 NEW_ENCODERS = ("resnet50_bts", "resnet101_bts", "resnext50_bts", "resnext101_bts", "mobilenetv2_bts")
 ENCODER_FORWARDS = 5  # timed bf16 forwards per encoder, after 2 warm-up
 EVAL_FRAMES, KITTI_EVAL_FRAMES, KITTI_FULL = 10, 20, (375, 1242)
+SERVE_B, SERVE_REQUESTS, SERVE_LINGER_MS, SEQ_FRAMES = 4, 16, 20.0, 10  # the serving phase
 TIMED_FORWARDS = 20
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 TURNS = 8  # training steps of each path in the kernel-vs-never comparison
@@ -316,12 +345,14 @@ def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> dict:
 def alone(row: dict, launch) -> None:
     """The kernel launched directly (``launch``: the library call the
     wrapper makes, on the same tensors, returning its error code) beside the
-    wrapper's time already in ``row``: kernel_only_ms, the wrapper's
-    overhead, and the share of the bound the kernel alone reaches."""
+    wrapper's time already in ``row``: kernel_only_ms (and its single-call
+    latency kernel_only_call_ms), the wrapper's overhead, and the share of
+    the bound the kernel alone reaches."""
     def fn():
         check(launch() == 0, "direct launch failed")
 
-    row["kernel_only_ms"] = device_median_ms(fn, call_median_ms(fn))
+    row["kernel_only_call_ms"] = call_median_ms(fn)
+    row["kernel_only_ms"] = device_median_ms(fn, row["kernel_only_call_ms"])
     row["wrapper_overhead_ms"] = row["ms"] - row["kernel_only_ms"]
     row["share_of_bound"] = row["bound_ms"] / row["kernel_only_ms"]
 
@@ -397,20 +428,27 @@ def _raw(b, h, w, k, dtype=torch.float32):
 
 
 def phase_kernel(card: str) -> None:
-    from bts_tpu_torch.ops.lpg_cuda import _lib, fused_denominator, lpg_fused_fwd, lpg_fused_plain
+    from bts_tpu_torch.ops.lpg_cuda import _k1_cuda, _lib, fused_denominator, lpg_fused, lpg_fused_plain
 
     rows = []
     for b, h, w, k in SLICE_SHAPES + [RAGGED_SHAPE]:
         raw = _raw(b, h, w, k)
-        out = lpg_fused_fwd(raw, k)
+        out = lpg_fused(raw, k)
         ref = lpg_fused_plain(raw, k)
         torch.cuda.synchronize()
         row = {"shape": [b, h, w, 3], "k": k, "out": list(out.shape)}
         row.update(compare_lpg(out, ref, fused_denominator(raw, k)))
         check(row["within_rule"], f"K1 disagrees with plain at {row}")
-        row.update(timings(lambda: lpg_fused_fwd(raw, k), lambda: lpg_fused_plain(raw, k)))
+        row.update(timings(lambda: lpg_fused(raw, k), lambda: lpg_fused_plain(raw, k)))
         row.update(bound(4 * b * h * w * 3 + 4 * b * h * w * k * k, K1_OPS_PER_PIXEL * b * h * w * k * k))
         alone(row, k1_alone(_lib(), raw, k))
+        # the op's CUDA implementation called directly: the wrapper as it was
+        # before K1 became a torch.library op, so the dispatcher's share shows
+        direct = lambda: _k1_cuda(raw, k)  # noqa: E731
+        row["unregistered_call_ms"] = call_median_ms(direct)
+        row["unregistered_ms"] = device_median_ms(direct, row["unregistered_call_ms"])
+        row["unregistered_wrapper_overhead_ms"] = row["unregistered_ms"] - row["kernel_only_ms"]
+        row["dispatcher_call_overhead_ms"] = row["call_ms"] - row["unregistered_call_ms"]
         row["card"] = card
         rows.append(row)
     emit({"phase": "kernel", "rule": f"rtol {RTOL}, atol {ATOL_SCALE}*max|ref|, |den|>={DENOM_MIN}",
@@ -422,7 +460,7 @@ def lpg_rows(b, h, w, k, dtype, backward: bool = True) -> list:
     each against its plain version by its rule, its times, bound, the kernel
     alone, the wrapper's overhead and the share of the bound; one row each."""
     from bts_tpu_torch.ops.lpg_cuda import (
-        _lib, fused_denominator, lpg_fused_bwd, lpg_fused_bwd_plain, lpg_fused_fwd, lpg_fused_plain,
+        _lib, fused_denominator, lpg_fused, lpg_fused_bwd, lpg_fused_bwd_plain, lpg_fused_plain,
     )
 
     rows = []
@@ -449,10 +487,10 @@ def lpg_rows(b, h, w, k, dtype, backward: bool = True) -> list:
         rows.append(row)
 
     frow = {"kernel": "K1", "shape": [b, h, w, 3], "k": k, "raw_dtype": str(dtype)[6:]}
-    fout = lpg_fused_fwd(raw, k)
+    fout = lpg_fused(raw, k)
     frow.update(compare_lpg(fout, lpg_fused_plain(raw, k), fused_denominator(raw, k)))
     check(frow["within_rule"], f"K1 disagrees with plain at {frow}")
-    frow.update(timings(lambda: lpg_fused_fwd(raw, k), lambda: lpg_fused_plain(raw, k)))
+    frow.update(timings(lambda: lpg_fused(raw, k), lambda: lpg_fused_plain(raw, k)))
     frow.update(bound(3 * esize * b * h * w + 4 * b * h * w * k * k,
                       K1_OPS_PER_PIXEL * b * h * w * k * k))
     alone(frow, k1_alone(_lib(), raw, k))
@@ -477,7 +515,7 @@ def phase_kernel_bwd(card: str) -> dict:
     the kernel alone, the wrapper's overhead and the share of the bound; the
     device kernels one bf16 call of each wrapper launches.  Returns the
     per-step sums for the result line."""
-    from bts_tpu_torch.ops.lpg_cuda import lpg_fused_bwd, lpg_fused_fwd
+    from bts_tpu_torch.ops.lpg_cuda import lpg_fused, lpg_fused_bwd
 
     rows, total = [], {}
     for b, h, w, k in TRAIN_SHAPES + [RAGGED_SHAPE]:
@@ -493,7 +531,7 @@ def phase_kernel_bwd(card: str) -> dict:
     b, h, w, k = TRAIN_SHAPES[0]
     raw = _raw(b, h, w, k, torch.bfloat16)
     g = torch.ones((b, h * k, w * k), device="cuda")
-    launched = {"K1": device_kernels(lambda: lpg_fused_fwd(raw, k)),
+    launched = {"K1": device_kernels(lambda: lpg_fused(raw, k)),
                 "K2": device_kernels(lambda: lpg_fused_bwd(raw, g, k))}
     emit({"phase": "kernel_bwd",
           "rule": f"K2: rtol {GRAD_RTOL} (bf16: 2^-7), atol {GRAD_ATOL_SCALE}*max|ref| on cells "
@@ -638,6 +676,14 @@ def tail_gap(out, ref) -> dict:
             and e.max().item() <= TAIL_MAX and (e > 1e-4).float().mean().item() <= TAIL_OFF_SHARE}
 
 
+def final_rule(out, ref) -> dict:
+    """The f32 final depth through the kernels against the same forward
+    through their plain versions: 1e-5 relative (phase slice's f32 rule)."""
+    e = (out - ref).abs()
+    return {"max_abs_err": e.max().item(), "max_rel_err": (e / ref.abs()).max().item(), "rtol": 1e-5,
+            "within_rule": bool(torch.isfinite(out).all()) and bool(torch.allclose(out, ref, rtol=1e-5, atol=0.0))}
+
+
 def stage_cycles(lib_path, iconv2, maps, params, b, hh, w2) -> dict:
     """K6's stage times in SM cycles, the median over its blocks, from the
     profiling build (-DK6_STAGE_CLOCKS: clock64() at the start and after each
@@ -671,13 +717,13 @@ def phase_tail(card: str, clocks_lib) -> dict:
     cycles from its profiling build ``clocks_lib``."""
     from bts_tpu_torch.models.bts import set_float32_precision
     from bts_tpu_torch.ops import tail_cuda
-    from bts_tpu_torch.ops.lpg_cuda import lpg_fused_fwd
+    from bts_tpu_torch.ops.lpg_cuda import lpg_fused
 
     set_float32_precision()  # the plain tail's f32 convs without TF32
     rows, total = [], {"K5": {"max_abs_err": 0.0}, "K6": {}}
     for b, h, w, k in SLICE_SHAPES:
         raw = _raw(b, h, w, k)
-        ph, plain, full = tail_cuda.lpg_phase_planes(raw, k), tail_cuda.lpg_phase_planes_plain(raw, k), lpg_fused_fwd(raw, k)
+        ph, plain, full = tail_cuda.lpg_phase_planes(raw, k), tail_cuda.lpg_phase_planes_plain(raw, k), lpg_fused(raw, k)
         torch.cuda.synchronize()
         row = {"kernel": "K5", "shape": [b, h, w, 3], "k": k, "out": list(ph.shape), "card": card,
                "equal_to_plain": torch.equal(ph, plain),
@@ -1377,7 +1423,7 @@ def phase_eval(card: str, kitti_model) -> dict:
     from bts_tpu_torch.evaluation.metrics import METRIC_NAMES
     from bts_tpu_torch.models.bts import create_model
     from bts_tpu_torch.ops.lpg_cuda import lpg_fused, lpg_fused_bwd
-    from bts_tpu_torch.utils.weights import load_state_dict
+    from bts_tpu_torch.utils.weights import load_state_dict, read_weights
 
     rec = {"phase": "eval", "card": card}
     evals = []
@@ -1454,7 +1500,7 @@ def phase_eval(card: str, kitti_model) -> dict:
         # online eval at b4 (padded tail of 2) against b1 on the same state, f32
         cfg = parse_args(argv, mode="train").replace(compute_dtype="float32")
         model = create_model(cfg, "cuda")
-        load_state_dict(model, bts_test.read_weights(ckpt)[0])
+        load_state_dict(model, read_weights(ckpt)[0])
         r4 = counted_eval(model, cfg, "cuda")
         r1 = counted_eval(model, cfg.replace(batch_size=1), "cuda")
         gaps = metric_gaps(r4, r1, METRIC_NAMES)
@@ -1483,6 +1529,345 @@ def phase_eval(card: str, kitti_model) -> dict:
     rec["launches"] = {"lpg_fused": lpg_fused.launches, "lpg_fused_bwd": lpg_fused_bwd.launches}
     emit(rec)
     return rec["launches"]
+
+
+def _http(port: int, path: str, data=None, accept=None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    if accept:
+        req.add_header("Accept", accept)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read(), r.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers.get("Content-Type", "")
+
+
+def _png(img) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def serve_requests(server, frames, focals, eager_depth, plain_depth, rule_m: float) -> dict:
+    """``len(frames)`` concurrent POST /v1/depth to ``server`` (PNG bodies,
+    ?focal=), half asking for .npy and half for the PNG; each answer against
+    ``eager_depth`` (N, H, W) of its frame: .npy within ``rule_m`` metres,
+    the PNG within 1 unit of depth_to_png; and against ``plain_depth``, the
+    same forward through the plain versions: .npy by the final depth's rule
+    (:func:`final_rule`), the PNG within 1 unit.  Returns the gaps, the
+    device calls and K1 launches they took, requests/s and p50/p90
+    latency."""
+    import io
+
+    from PIL import Image
+
+    from bts_tpu_torch.data.depth_io import depth_to_png
+    from bts_tpu_torch.ops.lpg_cuda import lpg_fused
+
+    port, batcher = server.server_address[1], server.batcher
+    bodies = [_png(f) for f in frames]
+    results = [None] * len(frames)
+
+    def hit(i):
+        t0 = time.perf_counter()
+        accept = "application/octet-stream" if i % 2 == 0 else None
+        results[i] = _http(port, f"/v1/depth?focal={focals[i]}", bodies[i], accept) + (
+            (time.perf_counter() - t0) * 1e3,)
+
+    calls, lpg_fused.launches = batcher.calls, 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(frames)) as pool:
+        list(pool.map(hit, range(len(frames))))
+    wall = time.perf_counter() - t0
+    rec = {"requests": len(frames), "device_calls": batcher.calls - calls, "k1_launches": lpg_fused.launches,
+           "requests_per_s": len(frames) / wall}
+    npy_gap, png_gap, vs_plain, png_plain_gap = 0.0, 0, [], 0
+    for i, (code, body, ctype, _) in enumerate(results):
+        check(code == 200, f"request {i}: {code} {body[:200]}")
+        if i % 2 == 0:
+            check(ctype == "application/octet-stream", f"request {i}: {ctype}")
+            npy = np.load(io.BytesIO(body))
+            npy_gap = max(npy_gap, float(np.abs(npy - eager_depth[i]).max()))
+            vs_plain.append(final_rule(torch.from_numpy(npy), torch.from_numpy(plain_depth[i])))
+        else:
+            check(ctype == "image/png", f"request {i}: {ctype}")
+            png = np.array(Image.open(io.BytesIO(body))).astype(np.int64)
+            png_gap = max(png_gap, int(np.abs(png - depth_to_png(eager_depth[i], "kitti").astype(np.int64)).max()))
+            png_plain_gap = max(png_plain_gap, int(np.abs(
+                png - depth_to_png(plain_depth[i], "kitti").astype(np.int64)).max()))
+    latency = sorted(r[3] for r in results)
+    q = statistics.quantiles(latency, n=10, method="inclusive")
+    rec.update(npy_max_abs_err_m=npy_gap, npy_limit_m=rule_m, png_max_unit_gap=png_gap,
+               npy_max_rel_err_vs_never=max(r["max_rel_err"] for r in vs_plain),
+               png_max_unit_gap_vs_never=png_plain_gap,
+               latency_ms={"p50": statistics.median(latency), "p90": q[8], "max": latency[-1]})
+    check(npy_gap <= rule_m and png_gap <= 1, f"served depth against eager {rec}")
+    check(all(r["within_rule"] for r in vs_plain) and png_plain_gap <= 1, f"served depth against never {rec}")
+    check(rec["k1_launches"] == 3 * rec["device_calls"], f"K1 launches per device call {rec}")
+    return rec
+
+
+def phase_serving(card: str) -> dict:
+    """The serving entry points on DenseNet-161, bts_size 512, KITTI, seeded
+    weights, f32: an upstream-style full .pth -> bts_convert -> bts_export
+    (352x1216, b4; then --fused_tail always) -> load_exported, against the
+    eager predict of the same weights and against its plain versions
+    (use_pallas="never"); bts_serve over HTTP from the artifact (16
+    concurrent requests) and in process from the checkpoint (4), against
+    both; bts_sequence over 10 frames of 375x1242 (KB crop, b4) against
+    bts_test through the kernels and through the plain versions.
+    Returns the launches of its three paths (export, serve_http, sequence)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    import threading
+
+    from PIL import Image
+
+    from bts_tpu_torch.cli import bts_convert, bts_export, bts_sequence, bts_serve, bts_test
+    from bts_tpu_torch.cli.bts_test import predict
+    from bts_tpu_torch.config import Config, adopt_sidecar_geometry, parse_args
+    from bts_tpu_torch.models.bts import create_model, set_float32_precision
+    from bts_tpu_torch.ops import tail_cuda
+    from bts_tpu_torch.ops.lpg_cuda import fused_denominator, lpg_fused
+    from bts_tpu_torch.utils.serving import load_exported
+    from bts_tpu_torch.utils.weights import read_weights, restore_model
+
+    set_float32_precision()
+    rec = {"phase": "serving", "card": card, "config": f"densenet161_bts, bts_size 512, kitti {H}x{W}, "
+           f"b{SERVE_B}, float32, seeded weights"}
+    rule_m = 1e-4 * MAX_DEPTH  # the exported / served depth against the eager forward
+    counters = {"lpg_fused": lpg_fused, "lpg_phase_planes": tail_cuda.lpg_phase_planes,
+                "fused_tail": tail_cuda.fused_tail}
+    launches = {path: dict.fromkeys(counters, 0) for path in ("export", "serve_http", "sequence")}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        return {n: c.launches for n, c in counters.items()}
+
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        common = ["--encoder", "densenet161_bts", "--bts_size", "512", "--max_depth", str(MAX_DEPTH),
+                  "--dataset", "kitti", "--input_height", str(H), "--input_width", str(W),
+                  "--compute_dtype", "float32", "--device", "cuda"]
+
+        # 1. an upstream-style full .pth of the seeded model -> bts_convert
+        src = create_model(Config(encoder="densenet161_bts", bts_size=512, max_depth=MAX_DEPTH,
+                                  compute_dtype="float32", seed=0)).state_dict()
+        upstream = {("module.encoder.base_model." + k[len("encoder."):]) if k.startswith("encoder.")
+                    else "module." + k: v for k, v in src.items()}
+        pth, ckpt = tmp / "bts_densenet161_kitti.pth", tmp / "converted"
+        torch.save({"model": upstream, "global_step": 0}, pth)
+        t0 = time.perf_counter()
+        check(bts_convert.main(common + ["--torch_checkpoint", str(pth), "--checkpoint_path", str(ckpt)]) == 0,
+              "bts_convert")
+        restored, step = read_weights(str(ckpt))
+        check(step == 0 and restored.keys() == src.keys() and all(torch.equal(restored[k], v) for k, v in src.items()),
+              "bts_convert's checkpoint differs from the source weights")
+        rec["convert"] = {"seconds": time.perf_counter() - t0, "tensors": len(src),
+                          "pth_mb": os.path.getsize(pth) / 1e6,
+                          "sidecar_encoder_pad": json.loads((ckpt / "config.json").read_text())["encoder_pad"]}
+        check(rec["convert"]["sidecar_encoder_pad"] == "torch", "bts_convert's sidecar")
+        pth.unlink()
+
+        # the eager reference: the converted weights through bts_test.predict
+        cfg = adopt_sidecar_geometry(Config(mode="test", encoder="densenet161_bts", bts_size=512,
+                                            max_depth=MAX_DEPTH, dataset="kitti", input_height=H, input_width=W,
+                                            batch_size=SERVE_B, compute_dtype="float32", checkpoint_path=str(ckpt)))
+        check(cfg.encoder_pad == "torch", "the sidecar's geometry was not adopted")
+        with contextlib.redirect_stdout(io.StringIO()):
+            model = restore_model(cfg, "cuda")
+        rng = np.random.default_rng(20)
+        frames = rng.integers(0, 256, (SERVE_REQUESTS, H, W, 3), dtype=np.uint8)
+        focals = rng.uniform(700.0, 725.0, SERVE_REQUESTS).astype(np.float32)
+
+        heads = _heads(model)  # raw reduction outputs of the last forward, for K1's denominators
+        lpg_heads = (("reduc8x8", 8), ("reduc4x4", 4), ("reduc2x2", 2))
+
+        def eager(fused_tail="auto", use_pallas="auto", n=SERVE_REQUESTS):
+            """bts_test.predict's five outputs over the first n frames at b4,
+            and each head's K1 denominators (B, H, W)."""
+            model.decoder.fused_tail, model.decoder.use_pallas = fused_tail, use_pallas
+            outs, dens = [], []
+            for i in range(0, n, SERVE_B):
+                outs.append(next(predict(cfg, model, [{"image": frames[i:i + SERVE_B],
+                                                       "focal": focals[i:i + SERVE_B]}], "cuda")))
+                dens.append([fused_denominator(heads[name].permute(0, 2, 3, 1), k) for name, k in lpg_heads])
+            model.decoder.fused_tail, model.decoder.use_pallas = "auto", cfg.use_pallas
+            torch.cuda.synchronize()
+            return [torch.cat(o) for o in zip(*outs)], [torch.cat(d) for d in zip(*dens)]
+
+        # the kernels at the b4 352x1216 heads against their plain versions
+        # (use_pallas="never") on the same frames: the maps by K1's rule, the
+        # final depth by final_rule (the literal tail) or K6's rule (the
+        # fused tail, scaled by max_depth and each frame's focal scale)
+        focal_scale = torch.from_numpy(focals / 715.0873).cuda()[:, None, None, None]
+        refs, kernel_vs_never = {}, {}
+        for fused_tail in ("auto", "always"):
+            n = SERVE_REQUESTS if fused_tail == "auto" else SERVE_B
+            kern, dens = eager(fused_tail, n=n)
+            before = counts()
+            plain, _ = eager(fused_tail, "never", n=n)
+            check(counts() == before, "use_pallas='never' launched a kernel")
+            row = {"frames": n, "maps": [dict(compare_lpg(kern[i][:, 0], plain[i][:, 0], dens[i]), k=k)
+                                         for i, (_, k) in enumerate(lpg_heads)]}
+            if fused_tail == "auto":
+                row["final"] = final_rule(kern[4], plain[4])
+            else:
+                row["d1x1"] = tail_gap(kern[3], plain[3])
+                row["final"] = tail_gap(kern[4] / (MAX_DEPTH * focal_scale[:n]),
+                                        plain[4] / (MAX_DEPTH * focal_scale[:n]))
+            kernel_vs_never[fused_tail] = row
+            emit({"phase": "serving_kernel_vs_never", "fused_tail": fused_tail, "card": card, **row})
+            check(all(r["within_rule"] for r in row["maps"]) and row["final"]["within_rule"]
+                  and row.get("d1x1", {"within_rule": True})["within_rule"],
+                  f"--fused_tail {fused_tail}: b{SERVE_B} kernels vs never {row}")
+            refs[fused_tail] = (kern[4][:, 0].cpu().numpy(), plain[4][:, 0].cpu().numpy())
+            del kern, plain, dens
+        rec["kernel_vs_never"] = kernel_vs_never
+        eager_depth, plain_depth = refs["auto"]
+
+        # 2. bts_export at b4 -> load_exported: 3 K1 per forward, against eager
+        exports = {}
+        for fused_tail in ("auto", "always"):
+            art = tmp / f"densenet161_kitti_b{SERVE_B}_{fused_tail}.pt2"
+            argv = common + ["--checkpoint_path", str(ckpt), "--batch_size", str(SERVE_B), "--export_path", str(art),
+                             "--fused_tail", fused_tail]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                check(bts_export.main(argv) == 0, f"bts_export --fused_tail {fused_tail}")
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            serve = load_exported(str(art))
+            load_s = time.perf_counter() - t0
+            x, f = frames[:SERVE_B], focals[:SERVE_B]
+            serve(x, f)  # warm-up
+            torch.cuda.synchronize()
+            reset()
+            got = serve(x, f)
+            torch.cuda.synchronize()
+            n = counts()
+            for key in counters:
+                launches["export"][key] += n[key]
+            want, never = (r[:SERVE_B] for r in refs[fused_tail])
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                serve(x, f)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            exports[fused_tail] = {
+                "summary": out.getvalue().strip().splitlines()[-1], "export_s": export_s, "load_s": load_s,
+                "artifact_mb": os.path.getsize(art) / 1e6, "launches_per_forward": n,
+                "max_abs_err_m_vs_eager": float(np.abs(got[..., 0].cpu().numpy() - want).max()),
+                "limit_m": rule_m, "ms_per_b4_forward_median_of_5": statistics.median(times)}
+            got, never = got[..., 0], torch.from_numpy(never).cuda()
+            exports[fused_tail]["vs_never"] = (
+                final_rule(got, never) if fused_tail == "auto" else
+                tail_gap(got / (MAX_DEPTH * focal_scale[:SERVE_B, 0]), never / (MAX_DEPTH * focal_scale[:SERVE_B, 0])))
+            emit({"phase": "serving_export", "fused_tail": fused_tail, "card": card, **exports[fused_tail]})
+            expected = ({"lpg_fused": 3, "lpg_phase_planes": 0, "fused_tail": 0} if fused_tail == "auto"
+                        else {"lpg_fused": 0, "lpg_phase_planes": 3, "fused_tail": 1})
+            check(n == expected, f"exported forward, --fused_tail {fused_tail}: launches {n}")
+            check(exports[fused_tail]["max_abs_err_m_vs_eager"] <= rule_m, f"exported vs eager {exports[fused_tail]}")
+            check(exports[fused_tail]["vs_never"]["within_rule"], f"exported vs never {exports[fused_tail]}")
+            del serve
+            if fused_tail == "always":
+                art.unlink()
+        rec["export"] = exports
+        literal = tmp / f"densenet161_kitti_b{SERVE_B}_auto.pt2"
+
+        # 3. bts_serve: from the artifact (16 concurrent requests), then in process (4)
+        http = {}
+        for backend, extra in (("exported", ["--export_path", str(literal)]),
+                               ("in_process", ["--checkpoint_path", str(ckpt), "--batch_size", str(SERVE_B)])):
+            scfg = adopt_sidecar_geometry(parse_args(common + extra + ["--serve_port", "0", "--serve_linger_ms",
+                                                                        str(SERVE_LINGER_MS)], mode="test"))
+            with contextlib.redirect_stdout(io.StringIO()):
+                server = bts_serve.make_server(scfg)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            try:
+                port = server.server_address[1]
+                code, body, _ = _http(port, "/healthz")
+                health = json.loads(body)
+                check(code == 200 and health == {"status": "ok", "batch": SERVE_B, "height": H, "width": W,
+                                                 "needs_focal": True, "dataset": "kitti"}, f"healthz {code} {body}")
+                n = SERVE_REQUESTS if backend == "exported" else SERVE_B
+                serve_requests(server, frames[:SERVE_B], focals, eager_depth, plain_depth, rule_m)  # warm-up
+                reset()
+                http[backend] = serve_requests(server, frames[:n], focals, eager_depth, plain_depth, rule_m)
+                for key, v in counts().items():
+                    launches["serve_http"][key] += v
+            finally:
+                t0 = time.perf_counter()
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=30)
+            http[backend]["shutdown_s"] = time.perf_counter() - t0
+            check(not thread.is_alive() and not server.batcher._thread.is_alive(), "bts_serve did not shut down")
+            emit({"phase": "serving_http", "backend": backend, "card": card, **http[backend]})
+        check(http["exported"]["device_calls"] < SERVE_REQUESTS, f"no micro-batching: {http['exported']}")
+        rec["http"] = http
+        literal.unlink()
+
+        # 4. bts_sequence --do_kb_crop b4 over 10 frames of 375x1242 against bts_test
+        seq_dir = tmp / "kitti_seq"
+        (seq_dir / "rgb").mkdir(parents=True)
+        frames_full = np.random.default_rng(21).integers(0, 256, (SEQ_FRAMES, *KITTI_FULL, 3), dtype=np.uint8)
+        for i, img in enumerate(frames_full):
+            Image.fromarray(img).save(seq_dir / "rgb" / f"{i:010d}.png")
+        # focal 715.0873 scales bts_test's depth by exactly 1, as bts_sequence applies none
+        (seq_dir / "split.txt").write_text("".join(f"rgb/{i:010d}.png None 715.0873\n" for i in range(SEQ_FRAMES)))
+        run = common + ["--checkpoint_path", str(ckpt), "--do_kb_crop", "--batch_size", str(SERVE_B)]
+        reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            check(bts_sequence.main(run + ["--image_path", str(seq_dir / "rgb"), "--out_path", str(tmp / "seq")]) == 0,
+                  "bts_sequence")
+        seq_s = time.perf_counter() - t0
+        launches["sequence"] = counts()
+        batches = -(-SEQ_FRAMES // SERVE_B)
+        check(launches["sequence"]["lpg_fused"] == 3 * batches, f"bts_sequence launches {launches['sequence']}")
+        # bts_test on the same frames through the kernels and through their
+        # plain versions (--use_pallas never)
+        gaps = {}
+        for use_pallas in ("auto", "never"):
+            before = counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                check(bts_test.main(run + ["--data_path", str(seq_dir), "--filenames_file", str(seq_dir / "split.txt"),
+                                           "--out_path", str(tmp / use_pallas), "--use_native_loader", "never",
+                                           "--use_pallas", use_pallas]) == 0, f"bts_test --use_pallas {use_pallas}")
+            check(use_pallas == "auto" or counts() == before, "bts_test --use_pallas never launched a kernel")
+            gaps[use_pallas] = 0
+            for i in range(SEQ_FRAMES):
+                seq = np.array(Image.open(tmp / "seq" / f"{i:010d}.png"))
+                ref = np.array(Image.open(tmp / use_pallas / "raw" / f"rgb_{i:010d}.png"))
+                check(seq.dtype == np.uint16 and seq.shape == (H, W), f"sequence PNG {i}: {seq.dtype} {seq.shape}")
+                gaps[use_pallas] = max(gaps[use_pallas], int(np.abs(seq.astype(np.int64) - ref.astype(np.int64)).max()))
+        rec["sequence"] = {"frames": SEQ_FRAMES, "batches": batches, "k1_launches": launches["sequence"]["lpg_fused"],
+                           "png_max_unit_gap_vs_bts_test": gaps["auto"],
+                           "png_max_unit_gap_vs_bts_test_never": gaps["never"], "seconds": seq_s,
+                           "frames_per_s": SEQ_FRAMES / seq_s, "log": out.getvalue().strip().splitlines()[-1]}
+        check(max(gaps.values()) <= 1, f"bts_sequence against bts_test: {rec['sequence']}")
+    rec["launches"] = launches
+    emit(rec)
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1528,7 +1913,9 @@ def main() -> int:
     nyu_launches = phase_train_nyu(card)
     eval_launches = phase_eval(card, kitti_model)
     del kitti_model
-    paths = ("serve", "serve_tail", "train", "op", "encoders", "train_nyu", "eval")
+    serving = phase_serving(card)
+    paths = ("serve", "serve_tail", "train", "op", "encoders", "train_nyu", "eval", "export", "serve_http",
+             "sequence")
     by_path = {name: dict.fromkeys(paths, 0) for name, _, _, _ in KERNELS}
     by_path["lpg_fused"].update(serve=serve_launches, serve_tail=tail_launches["lpg_fused"],
                                 train=train_launches["lpg_fused"], encoders=encoder_launches,
@@ -1539,6 +1926,9 @@ def main() -> int:
     by_path["lpg_plane_bwd"]["op"] = op_launches["lpg_plane_bwd"]
     by_path["lpg_phase_planes"]["serve_tail"] = tail_launches["lpg_phase_planes"]
     by_path["fused_tail"]["serve_tail"] = tail_launches["fused_tail"]
+    for path, counts in serving.items():
+        for name, n in counts.items():
+            by_path[name][path] = n
     check(all(sum(p.values()) > 0 for p in by_path.values()), f"a kernel of the main paths never launched: {by_path}")
     numbers = {
         "K1": dict(per_step["K1"]["bfloat16"], max_abs_err=per_step["K1"]["float32"]["max_abs_err"],

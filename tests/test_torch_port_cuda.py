@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: the fused LPG head's forward K1 and
 backward K2, the public LPG op's forward K3 and backward K4, the phase-plane
 head K5 (csrc/lpg_fused.cu) and the fused decoder tail K6
-(csrc/fused_tail.cu), each against its plain version.
+(csrc/fused_tail.cu), each against its plain version; K1, K2, K5 and K6
+through their torch.library ops against their CUDA implementations called
+directly, and through an exported serving program.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: a CUDA
 kernel has no CPU mode.  On a machine with a card (and ``nvcc``):
@@ -213,7 +215,7 @@ def test_phase_kernel_is_k1_interleaved(card, k, h, w, b):
     ph = tail_cuda.lpg_phase_planes(raw, k)
     torch.cuda.synchronize()
     assert ph.shape == (b, 4, h * k // 2, w * k // 2)
-    assert torch.equal(tail_cuda.interleave2x2(ph), lpg_cuda.lpg_fused_fwd(raw, k))
+    assert torch.equal(tail_cuda.interleave2x2(ph), lpg_cuda.lpg_fused(raw, k))
     assert torch.equal(ph, tail_cuda.lpg_phase_planes_plain(raw, k))
 
 
@@ -307,3 +309,65 @@ def test_tail_kernel_refuses_bad_shapes(card):
         tail_cuda.fused_tail(iconv2[..., :32], *maps, params)
     with pytest.raises(ValueError, match="maps"):
         tail_cuda.fused_tail(iconv2, maps[0][..., :64], maps[1], maps[2], params)
+
+
+def _op_cases(card):
+    """(op, its CUDA implementation, the object that counts its launches,
+    args) of K1, K2, K5 and K6 on the inputs the decoder gives them."""
+    raw = _raw(card, 2, 13, 37, seed=3)
+    g = torch.randn(2, 13 * 4, 37 * 4, device=card)
+    iconv2, maps, params = _tail_inputs(card, 1, 16, 128, seed=6)
+    return {
+        "K1": (lpg_cuda.lpg_fused, lpg_cuda._k1_cuda, lpg_cuda.lpg_fused, (raw, 8)),
+        "K2": (lpg_cuda.lpg_fused_bwd, lpg_cuda._k2_cuda, lpg_cuda.lpg_fused_bwd, (raw, g, 4)),
+        "K5": (tail_cuda.lpg_phase_planes, tail_cuda._k5_cuda, tail_cuda.lpg_phase_planes, (raw, 4)),
+        "K6": (tail_cuda._k6, tail_cuda._k6_cuda, tail_cuda.fused_tail,
+               (iconv2, *maps, tail_cuda._flat_params(params))),
+    }
+
+
+@pytest.mark.parametrize("key", ["K1", "K2", "K5", "K6"])
+def test_registered_op_is_its_cuda_implementation(card, key, monkeypatch):
+    """Through the dispatcher, each op runs its CUDA implementation (the
+    launch code, called directly here): the same output bit for bit, in the
+    same strides, and one launch counted per call."""
+    op, impl, counted, args = _op_cases(card)[key]
+    monkeypatch.setattr(counted, "launches", 0)
+    via_op, direct = op(*args), impl(*args)
+    torch.cuda.synchronize()
+    assert counted.launches == 2
+    for a, b in zip(*((x,) if torch.is_tensor(x) else x for x in (via_op, direct))):
+        assert a.stride() == b.stride() and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fused_tail", ["auto", "always"])
+def test_exported_program_launches_the_kernels(card, tmp_path, fused_tail, monkeypatch):
+    """A tiny KITTI model exported on the card, saved and loaded: one call
+    launches K1 three times (or, with the fused tail, K5 three times and K6
+    once) and equals the eager serving forward bit for bit."""
+    from bts_tpu_torch.cli.bts_export import build_serve_fn, export_serving_fn
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import create_model, set_float32_precision
+    from bts_tpu_torch.utils.serving import load_exported
+
+    set_float32_precision()
+    cfg = Config(mode="test", encoder="mobilenetv2_bts", dataset="kitti", input_height=32, input_width=64,
+                 batch_size=2, compute_dtype="float32", fused_tail=fused_tail,
+                 bts_size=512 if fused_tail == "always" else 128)
+    model = create_model(cfg, card)
+    path = str(tmp_path / "m.pt2")
+    torch.export.save(export_serving_fn(cfg, model), path)
+    serve = load_exported(path)
+    assert serve.device.type == "cuda"
+    images = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 32, 64, 3), dtype=np.uint8))
+    focal = torch.tensor([721.5377, 707.0493])
+    counters = (lpg_cuda.lpg_fused, tail_cuda.lpg_phase_planes, tail_cuda.fused_tail)
+    for c in counters:
+        monkeypatch.setattr(c, "launches", 0)
+    got = serve(images, focal)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == ([3, 0, 0] if fused_tail == "auto" else [0, 3, 1])
+    fwd, _ = build_serve_fn(cfg, model)
+    with torch.inference_mode():
+        want = fwd(images.to(card), focal.to(card))
+    assert got.shape == (2, 32, 64, 1) and torch.equal(got, want)

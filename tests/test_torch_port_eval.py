@@ -103,10 +103,9 @@ def test_best_tracker_matches_jax(tmp_path):
 
 def test_best_checkpoints_keep_weights_and_serve(tmp_path):
     """A later best replaces the earlier one; the file holds the weights and
-    the step only, and bts_test.read_weights restores it."""
-    from bts_tpu_torch.cli.bts_test import read_weights
+    the step only, and utils.weights.read_weights restores it."""
     from bts_tpu_torch.models.bts import create_model
-    from bts_tpu_torch.utils.weights import load_state_dict
+    from bts_tpu_torch.utils.weights import load_state_dict, read_weights
 
     cfg = Config(encoder="mobilenetv2_bts", bts_size=128)
     model = create_model(cfg)

@@ -261,10 +261,11 @@ PORT_MODULES = (
     "bts_tpu_torch.cli.bts_test", "bts_tpu_torch.tools.lpg_launch_shapes",
     "bts_tpu_torch.evaluation", "bts_tpu_torch.evaluation.metrics", "bts_tpu_torch.evaluation.best",
     "bts_tpu_torch.models.encoders.resnet", "bts_tpu_torch.models.encoders.mobilenetv2",
+    "bts_tpu_torch.utils.serving", "bts_tpu_torch.cli.bts_export", "bts_tpu_torch.cli.bts_convert",
 )
 NEEDS_PIL = ("bts_tpu_torch.data.crops", "bts_tpu_torch.data.depth_io",
              "bts_tpu_torch.data.dataloader", "bts_tpu_torch.cli.bts_main", "bts_tpu_torch.cli.bts_eval",
-             "chip_smoke")
+             "bts_tpu_torch.cli.bts_serve", "bts_tpu_torch.cli.bts_sequence", "chip_smoke")
 
 
 def test_port_imports_no_jax_and_no_pil():

@@ -34,6 +34,7 @@ from bts_tpu.ops.tail_pallas import fused_tail as j_fused_tail
 from bts_tpu.ops.tail_pallas import lpg_phase_planes as j_phase_planes
 from bts_tpu_torch.models import layers
 from bts_tpu_torch.models.bts import BtsDecoder, _tail_ok
+from bts_tpu_torch.ops import lpg as port_lpg
 from bts_tpu_torch.ops import lpg_cuda, tail_cuda
 from bts_tpu_torch.utils import torch_converter as TC
 
@@ -360,7 +361,7 @@ def test_decoder_plain_tail_is_the_cpu_tail(decoder_case, monkeypatch):
     literal tail modules."""
     feats, focal, variables = decoder_case
     calls = []
-    monkeypatch.setattr(lpg_cuda.LpgFused, "apply", lambda *a: calls.append("K1") or None)
+    monkeypatch.setattr(port_lpg, "lpg_fused", lambda *a: calls.append("K1") or None)
     outs = {}
     for setting in ("auto", "never"):
         dec = _port_decoder(variables, torch.float32, "always", setting)
