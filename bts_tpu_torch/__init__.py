@@ -17,6 +17,8 @@ the reference each module is tested against.  The layout mirrors it:
   bts_tpu/utils/{torch_converter,checkpoint,summary,preemption,serving}
                                         -> bts_tpu_torch/utils/... (+ weights.py)
   bts_tpu/evaluation/{metrics,best}.py  -> bts_tpu_torch/evaluation/...
+  bts_tpu/parallel/mesh.py              -> bts_tpu_torch/parallel/distributed.py
+                                           (torch.distributed, DDP, ZeRO-1)
   bts_tpu/cli/{bts_test,bts_main,bts_eval,bts_convert,bts_export,bts_serve,bts_sequence}.py
                                         -> bts_tpu_torch/cli/... (export: torch.export)
 

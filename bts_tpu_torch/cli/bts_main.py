@@ -1,5 +1,5 @@
 """Training driver (reference ``bts_main.py``); counterpart of
-``bts_tpu/cli/bts_main.py`` on one card.
+``bts_tpu/cli/bts_main.py``.
 
     python -m bts_tpu_torch.cli.bts_main @arguments/arguments_train_eigen.txt
     python -m bts_tpu_torch.cli.bts_main arguments/arguments_train_nyu.txt --device cpu
@@ -16,9 +16,23 @@ raises when there is no card).
     python -m bts_tpu_torch.cli.bts_main @arguments/arguments_train_nyu.txt --do_online_eval \
         --data_path_eval D --gt_path_eval D --filenames_file_eval F --eval_freq 500
 
-Not ported yet (each raises ``NotImplementedError``; ROADMAP.md): more than
-one device (``--num_devices > 1``), ``--spatial_shards[_w]``,
-``--shard_opt_state`` and ``--debug_nans``.
+Data parallel: one process per card, launched by torchrun; ``--batch_size``
+is the global batch, ``--num_devices`` (-1: the world size) must match
+``--nproc_per_node`` x nodes, ``--shard_opt_state`` shards AdamW's moments
+(ZeRO-1).  NCCL on the cards, gloo with ``--device cpu``:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 8 \
+        -m bts_tpu_torch.cli.bts_main @arguments/arguments_train_eigen.txt --shard_opt_state
+
+Every rank trains on its rows of each global batch and runs the
+visualisation forward and the online eval (the same frames on every rank);
+rank 0 alone writes the config sidecar, checkpoints, summaries, best
+checkpoints and the step log.  A checkpoint holds the whole state whatever
+the world size, so a run resumes at another one.  A SIGTERM stops every rank
+at the same ``--preempt_sync_freq`` step.
+
+Not ported yet (each raises ``NotImplementedError``; ROADMAP.md):
+``--spatial_shards[_w]`` and ``--debug_nans``.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bts_tpu_torch.config import (
     adopt_sidecar_geometry,
@@ -44,6 +59,7 @@ from bts_tpu_torch.data.dataloader import BtsDataLoader
 from bts_tpu_torch.evaluation.best import BestCheckpoints, BestTracker
 from bts_tpu_torch.evaluation.metrics import METRIC_NAMES
 from bts_tpu_torch.models.bts import create_model, set_float32_precision
+from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.training.trainer import Trainer
 from bts_tpu_torch.utils.checkpoint import CheckpointManager, restore_for_retrain
 from bts_tpu_torch.utils.summary import SummaryWriter
@@ -51,9 +67,7 @@ from bts_tpu_torch.utils.summary import SummaryWriter
 
 def _refuse_unported(cfg) -> None:
     unported = {
-        "--num_devices > 1 (data parallel, 'DDP/ZeRO')": cfg.num_devices > 1,
-        "--spatial_shards[_w] ('Modules to port' 7)": cfg.spatial_shards > 1 or cfg.spatial_shards_w > 1,
-        "--shard_opt_state ('DDP/ZeRO')": cfg.shard_opt_state,
+        "--spatial_shards[_w] ('Modules to port' 8)": cfg.spatial_shards > 1 or cfg.spatial_shards_w > 1,
         "--debug_nans": cfg.debug_nans,
     }
     for what, asked in unported.items():
@@ -163,13 +177,27 @@ def main(argv=None):
     cfg = parse_args(argv, mode="train")
     _refuse_unported(cfg)
     device = require_device(cfg)
-    print(f"[bts_tpu_torch] device {device}")
+    started = parallel.maybe_init_distributed(cfg)
+    try:
+        return train(cfg, parallel.local_device(device))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def train(cfg, device):
+    world, primary = parallel.world(), parallel.is_primary()
+    if cfg.batch_size % world:
+        raise SystemExit(f"batch_size {cfg.batch_size} not divisible by {world} processes")
+    backend = f", {dist.get_backend()}" if parallel.initialized() else ""
+    print(f"[bts_tpu_torch] device {device}, rank {parallel.rank()} of {world}{backend}")
     set_float32_precision()
 
     loader = BtsDataLoader(cfg, "train")
     steps_per_epoch = loader.steps_per_epoch()
     total_steps = steps_per_epoch * cfg.num_epochs
-    print(f"[bts_tpu_torch] {len(loader)} samples, {steps_per_epoch} steps/epoch, {total_steps} total")
+    log = print if primary else (lambda *a, **k: None)
+    log(f"[bts_tpu_torch] {len(loader)} samples, {steps_per_epoch} steps/epoch, {total_steps} total")
 
     # resuming / fine-tuning: adopt the original run's stride-2 geometry
     logdir = os.path.join(cfg.log_directory or "runs", cfg.model_name)
@@ -177,9 +205,10 @@ def main(argv=None):
     model = create_model(cfg, device)
     if cfg.pretrained_model:
         load_pretrained_encoder(model, cfg.pretrained_model)
-        print(f"[bts_tpu_torch] encoder initialized from {cfg.pretrained_model}")
+        log(f"[bts_tpu_torch] encoder initialized from {cfg.pretrained_model}")
     trainer = Trainer(model, cfg, total_steps, device, augment=True)
-    write_config_sidecar(cfg, logdir)
+    if primary:
+        write_config_sidecar(cfg, logdir)
 
     # --retrain restores FROM checkpoint_path and saves into a fresh
     # directory, with the step reset to 0
@@ -195,31 +224,34 @@ def main(argv=None):
         if src.latest_step() is None:
             raise SystemExit(f"--retrain: no checkpoint found in {restore_dir}")
         restore_for_retrain(src, trainer)
-        print(f"[bts_tpu_torch] retrain from {restore_dir} (step reset)")
-        if os.path.isdir(save_dir) and CheckpointManager(save_dir).steps():
+        log(f"[bts_tpu_torch] retrain from {restore_dir} (step reset)")
+        if primary and os.path.isdir(save_dir) and CheckpointManager(save_dir).steps():
             shutil.rmtree(save_dir)  # the old run's later steps would shadow the new run's
             print(f"[bts_tpu_torch] retrain: cleared stale checkpoints in {save_dir}")
+        parallel.barrier()
         mgr = CheckpointManager(save_dir)
     else:
         mgr = CheckpointManager(restore_dir)
         if mgr.latest_step() is not None:
             trainer.load_state_dict(mgr.restore(map_location=device))
-            print(f"[bts_tpu_torch] resumed @ step {trainer.step}")
+            log(f"[bts_tpu_torch] resumed @ step {trainer.step}")
 
     # the best value of each metric across online evals, resume-safe in a
     # JSON sidecar, and a per-metric best checkpoint (evaluation/best.py)
     best_tracker = BestTracker(logdir)
     best_ckpts = BestCheckpoints(os.path.join(logdir, "ckpt_best"))
-    if cfg.retrain and best_tracker.best:
+    if cfg.retrain and best_tracker.best and primary:
         # a step-0 run must not compete against the old run's bar
         best_tracker.reset()
         best_ckpts.reset()
         print("[bts_tpu_torch] retrain: reset stale best-metric bar + best checkpoints")
 
-    writer = SummaryWriter(logdir)
-    # reference flag: a separate TensorBoard directory for the eval scalars
-    eval_writer = (SummaryWriter(os.path.join(cfg.eval_summary_directory, cfg.model_name))
-                   if cfg.eval_summary_directory else writer)
+    writer = eval_writer = None
+    if primary:
+        writer = SummaryWriter(logdir)
+        # reference flag: a separate TensorBoard directory for the eval scalars
+        eval_writer = (SummaryWriter(os.path.join(cfg.eval_summary_directory, cfg.model_name))
+                       if cfg.eval_summary_directory else writer)
     t0 = time.time()
     last = {"t": t0, "step": trainer.step}
     stream = loader.batches(num_epochs=1)
@@ -227,18 +259,21 @@ def main(argv=None):
     stream.close()
 
     def on_metrics(step, metrics):
-        now = time.time()
-        ips = (step - last["step"]) * cfg.batch_size / max(now - last["t"], 1e-9)
-        last.update(t=now, step=step)
-        writer.scalars(step, {"train/" + k: v for k, v in metrics.items()})
-        writer.scalars(step, {"train/images_per_sec": ips})
         # TensorBoard depth and per-scale LPG images of a fixed crop; eval-mode
         # BN unless --bn_no_track_stats, whose runs keep no running statistics
+        # (then its BatchNorms all-reduce, so every rank runs this forward)
         model.train(cfg.bn_no_track_stats)
         with torch.no_grad():
             image = eval_preprocess(vis_image.to(device)).permute(0, 3, 1, 2)
             d8, d4, d2, _, final = model(image)
         model.train()
+        if not primary:
+            return
+        now = time.time()
+        ips = (step - last["step"]) * cfg.batch_size / max(now - last["t"], 1e-9)
+        last.update(t=now, step=step)
+        writer.scalars(step, {"train/" + k: v for k, v in metrics.items()})
+        writer.scalars(step, {"train/images_per_sec": ips})
         for tag, img in (("depth", final), ("lpg8x8", d8 * cfg.max_depth),
                          ("lpg4x4", d4 * cfg.max_depth), ("lpg2x2", d2 * cfg.max_depth)):
             writer.depth_image(step, f"train/{tag}", img[0, 0].cpu().numpy(), cfg.max_depth)
@@ -247,7 +282,7 @@ def main(argv=None):
 
     def on_eval(step):
         results = online_eval(model, cfg, device)
-        if results is None:
+        if results is None or not primary:
             return
         eval_writer.scalars(step, dict(zip(("eval/" + n for n in METRIC_NAMES), results)))
         print("eval: " + " ".join(f"{n}={v:.4f}" for n, v in zip(METRIC_NAMES, results)), flush=True)
@@ -264,13 +299,13 @@ def main(argv=None):
     if cfg.preempt_sync_freq > 0:
         from bts_tpu_torch.utils.preemption import PreemptionGuard
 
-        guard = PreemptionGuard()
+        guard = PreemptionGuard(sync_freq=cfg.preempt_sync_freq, device=device)
     try:
         trainer.run(
             loader.prefetched(start_step=trainer.step),  # sample-exact resume
             total_steps - trainer.step,
             on_metrics,
-            lambda step: mgr.save(step, trainer.state_dict()),
+            lambda step: trainer.save(mgr, step),
             on_eval if cfg.do_online_eval else None,
             profile_dir=os.path.join(logdir, "profile") if cfg.profile else None,
             should_stop=guard.should_stop if guard is not None else None,
@@ -278,15 +313,16 @@ def main(argv=None):
     finally:
         if guard is not None:
             guard.uninstall()
-    mgr.save(trainer.step, trainer.state_dict())
-    if eval_writer is not writer:
-        eval_writer.close()
-    writer.close()
+    trainer.save(mgr, trainer.step)
+    if primary:
+        if eval_writer is not writer:
+            eval_writer.close()
+        writer.close()
     if guard is not None and guard.preempted:
         print(f"[bts_tpu_torch] preempted: checkpoint saved at step {trainer.step} "
               "— rerun the same command to resume")
     else:
-        print(f"[bts_tpu_torch] done at step {trainer.step}")
+        log(f"[bts_tpu_torch] done at step {trainer.step}")
     return 0
 
 

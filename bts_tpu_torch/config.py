@@ -74,7 +74,7 @@ class Config:
     eval_freq: int = 500
     eval_summary_directory: str = ""
     # -- multi-device
-    num_devices: int = -1  # -1 => one card here (data parallel is not ported)
+    num_devices: int = -1  # processes (one per card) under torchrun; -1 => the world size
     num_threads: int = 1
     # -- test / sequence drivers
     image_path: str = ""

@@ -195,6 +195,10 @@ class AugmentDraws:
     def to(self, device) -> "AugmentDraws":
         return AugmentDraws(**{f.name: getattr(self, f.name).to(device) for f in fields(self)})
 
+    def rows(self, start: int, stop: int) -> "AugmentDraws":
+        """The draws of samples [start, stop)."""
+        return AugmentDraws(**{f.name: getattr(self, f.name)[start:stop] for f in fields(self)})
+
 
 def draw_augment(gen: torch.Generator, b: int, h: int, w: int, out_h: int, out_w: int,
                  dataset: str = "kitti", degree: float = 1.0) -> AugmentDraws:
@@ -234,11 +238,18 @@ def apply_augment(images, depths, draws: AugmentDraws, *, out_h: int, out_w: int
 
 
 def augment_batch(images, depths, gen: torch.Generator, *, out_h: int, out_w: int,
-                  dataset: str = "kitti", degree: float = 1.0, do_random_rotate: bool = True):
+                  dataset: str = "kitti", degree: float = 1.0, do_random_rotate: bool = True,
+                  share: tuple = (0, 1)):
     """Draw from ``gen`` and apply on the images' device: (B, H, W, 3) uint8
     or [0, 1] images and (B, H, W) depths -> (B, out_h, out_w, 3) normalised
-    images and (B, out_h, out_w) depths."""
+    images and (B, out_h, out_w) depths.
+
+    ``share`` (r, N): the images are rank r's B rows of a data-parallel batch
+    of N*B; the draws are made for all N*B samples and rank r keeps those of
+    rows [r*B, (r+1)*B), so the batch is augmented as one process would."""
     b, h, w = images.shape[:3]
-    draws = draw_augment(gen, b, h, w, out_h, out_w, dataset, degree).to(images.device)
+    r, n = share
+    draws = draw_augment(gen, n * b, h, w, out_h, out_w, dataset, degree)
+    draws = draws.rows(r * b, (r + 1) * b).to(images.device)
     return apply_augment(images, depths, draws, out_h=out_h, out_w=out_w, degree=degree,
                          do_random_rotate=do_random_rotate)

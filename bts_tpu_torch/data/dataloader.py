@@ -29,6 +29,7 @@ import numpy as np
 from PIL import Image
 
 from bts_tpu_torch.data.crops import kb_crop, nyu_border_crop
+from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.data.depth_io import depth_from_png
 
 RECORD_SUFFIXES = (".array_record", ".arrayrecord")
@@ -113,16 +114,6 @@ def load_sample(
     return image, depth, sample.focal
 
 
-def _rank_and_world() -> Tuple[int, int]:
-    """This process's rank and the world size from ``torch.distributed``
-    when it is initialised, else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 class BtsDataLoader:
     """Batch iterator over a split file (reference ``BtsDataloader``).
 
@@ -162,13 +153,12 @@ class BtsDataLoader:
                 "every epoch would be empty (train mode drops the remainder)"
             )
         # data parallel: every rank shuffles with the same seed (one global
-        # order) and loads its contiguous slice of each global batch
-        self.process_index, self.process_count = _rank_and_world() if mode == "train" else (0, 1)
-        if self.batch_size % self.process_count != 0:
-            raise ValueError(
-                f"batch_size {self.batch_size} not divisible by {self.process_count} processes"
-            )
-        self.local_batch = self.batch_size // self.process_count
+        # order) and loads its share of each global microbatch
+        self.rows = None
+        if mode == "train" and parallel.world() > 1:
+            self.rows = parallel.rank_rows(self.batch_size, max(1, int(cfg.grad_accum_steps)),
+                                           parallel.rank(), parallel.world())
+        self.local_batch = self.batch_size if self.rows is None else len(self.rows)
 
     def __len__(self):
         return self.n_base
@@ -227,9 +217,8 @@ class BtsDataLoader:
                     order = order + [order[-1]] * (self.batch_size - rem)
                 for start in range(skip * self.batch_size, len(order), self.batch_size):
                     chunk = order[start : start + self.batch_size]
-                    if self.process_count > 1:
-                        lo = self.process_index * self.local_batch
-                        chunk = chunk[lo : lo + self.local_batch]
+                    if self.rows is not None:
+                        chunk = [chunk[r] for r in self.rows]
                     if pool is not None:
                         loaded = list(pool.map(self._load_index, chunk))
                     else:

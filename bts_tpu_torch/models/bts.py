@@ -126,7 +126,8 @@ class BtsDecoder(nn.Module):
         self.reduc2x2 = Reduction1x1(nf // 8, nf // 16, dtype=dt)
         self.upconv1 = UpConv(nf // 8, nf // 16, dt)
         self.reduc1x1 = Reduction1x1(nf // 16, nf // 32, is_final=True, dtype=dt)
-        self.conv1 = ConvBlock(nf // 16 + 4, nf // 16, dtype=dt)
+        # depth_1x1 has one channel, or nf // 16 where reduc1x1 passes through
+        self.conv1 = ConvBlock(nf // 16 + self.reduc1x1.out_channels + 3, nf // 16, dtype=dt)
         self.get_depth = ConvBlock(nf // 16, 1, act=None, dtype=dt)
 
     def _lpg(self, reduc: torch.Tensor, k: int) -> torch.Tensor:

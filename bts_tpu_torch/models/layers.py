@@ -21,6 +21,7 @@ import threading
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
@@ -144,7 +145,15 @@ class BatchNorm(nn.Module):
     normalise, and ``running = 0.99 * running + 0.01 * batch`` updates the
     buffers, except while a :func:`checkpoint` recomputes or when
     ``track_stats`` is False (``--bn_no_track_stats``).  torch's own
-    batch_norm would fold the unbiased variance into the running one."""
+    batch_norm would fold the unbiased variance into the running one.
+
+    ``process_group`` (set by a data-parallel ``Trainer``): the batch is
+    split over its ranks, and the moments are those of the global batch, as
+    flax takes them over a data-sharded batch under ``jit``: the per-channel
+    sums of x and x^2 and the count go through one autograd all-reduce, and
+    every rank folds the same global moments into its running statistics.
+    Every rank must then run the same train-mode forwards in the same order,
+    a checkpoint's recompute included."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -153,13 +162,24 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
         self.track_stats = True
+        self.process_group = None
+
+    def _moments(self, xf):
+        """Batch mean and E[x^2] per channel, over the process group if any."""
+        if self.process_group is None:
+            return xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count])
+        sums = dist_fn.all_reduce(sums, group=self.process_group)
+        return sums[:c] / sums[-1], sums[c:-1] / sums[-1]
 
     def forward(self, x):
         shape = (1, -1, 1, 1)
         xf = x.float()
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, mean_sq = self._moments(xf)
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             if self.track_stats and not recomputing():
                 with torch.no_grad():
                     m = BN_MOMENTUM
@@ -214,7 +234,10 @@ class Reduction1x1(nn.Module):
     """Plane-coefficient head (reference ``reduction_1x1``): 1x1 convs
     ``conv0, conv1, ...`` halving ``num_filters`` with ELU between, ending in
     1 channel (``is_final``) or 3 raw spherical plane parameters.  Returns
-    the raw head output; the caller applies the transform."""
+    the raw head output; the caller applies the transform.  With
+    ``num_filters`` < 4 the chain is empty and the input passes through, as
+    in the JAX module (reduc1x1 below bts_size 128); ``out_channels`` is the
+    channel count the head returns."""
 
     def __init__(self, in_channels: int, num_filters: int, is_final: bool = False,
                  dtype=torch.float32):
@@ -230,8 +253,9 @@ class Reduction1x1(nn.Module):
             if nf < 8:
                 break
             nf //= 2
+        self.out_channels = c
 
     def forward(self, x):
         for conv in self.convs[:-1]:
             x = F.elu(conv(x))
-        return self.convs[-1](x)
+        return self.convs[-1](x) if self.convs else x

@@ -14,19 +14,38 @@ timing (JAX's per-step PRNG keys are not reproduced).
 ``--grad_accum_steps N`` splits the delivered batch into N microbatches:
 gradients are averaged over them against constant parameters, BN running
 statistics update sequentially, and one optimizer update follows.
+
+Data parallel (a ``torch.distributed`` group, ``parallel/distributed.py``):
+the model runs wrapped in ``DistributedDataParallel``, and the step equals
+the one-process step on the same global batch.  Each rank gets its rows of
+every global microbatch (``parallel.rank_rows``), draws the augmentation of
+the whole global microbatch and keeps its rows, and (world size > 1)
+all-reduces BatchNorm's moments and the silog sums, so every rank holds the
+global loss; the backward of those all-reduces makes each rank's gradient N
+times its share and DDP's average divides it back.  Microbatches before the
+last run under ``no_sync``.  ``depth_mean`` is averaged over the ranks;
+after DDP's all-reduce every rank holds the same gradient, so ``grad_norm``
+is the global one.  ``state_dict`` and ``load_state_dict`` read and write
+the unwrapped model; under ZeRO-1 :meth:`Trainer.save` gathers the
+optimizer state on rank 0, which alone writes the checkpoint.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.optim import ZeroRedundancyOptimizer
+from torch.nn.parallel import DistributedDataParallel
 
 from bts_tpu_torch.data.augment import augment_batch, eval_preprocess
 from bts_tpu_torch.models.layers import BatchNorm
 from bts_tpu_torch.ops.silog import default_mask, silog_loss
+from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.training.optimizer import freeze, make_optimizer
 
 
@@ -46,10 +65,22 @@ class Trainer:
         self.device = torch.device(device)
         self.augment = augment
         self.step = 0
+        self.rank, self.world = parallel.rank(), parallel.world()
+        # the group the batch is split over (None: the batch is whole here)
+        self.group = dist.group.WORLD if self.world > 1 else None
         for m in model.modules():
             if isinstance(m, BatchNorm):
                 m.track_stats = not cfg.bn_no_track_stats
+                m.process_group = self.group
         self.frozen = freeze(model, cfg)
+        self.ddp = None
+        if parallel.initialized():
+            # frozen parameters (requires_grad False) are not DDP's; the
+            # global BatchNorm keeps every rank's buffers equal, so rank 0's
+            # are not broadcast before each forward
+            self.ddp = DistributedDataParallel(
+                model, device_ids=[self.device.index] if self.device.type == "cuda" else None,
+                broadcast_buffers=False)
         self.optimizer, self.scheduler = make_optimizer(model, cfg, total_steps)
         self.params = [p for p in model.parameters() if p.requires_grad]
 
@@ -59,18 +90,23 @@ class Trainer:
             images, depths = augment_batch(
                 images, depths, gen, out_h=cfg.input_height, out_w=cfg.input_width,
                 dataset=cfg.dataset, degree=cfg.degree, do_random_rotate=cfg.do_random_rotate,
+                share=(self.rank, self.world),
             )
         else:
             images, depths = eval_preprocess(images), depths.float()
-        outs = self.model(images.permute(0, 3, 1, 2), focal if cfg.dataset == "kitti" else None)
+        model = self.model if self.ddp is None else self.ddp
+        outs = model(images.permute(0, 3, 1, 2), focal if cfg.dataset == "kitti" else None)
         final = outs[4][:, 0]
-        loss = silog_loss(final, depths, default_mask(depths, cfg.dataset), cfg.variance_focus)
+        loss = silog_loss(final, depths, default_mask(depths, cfg.dataset), cfg.variance_focus,
+                          group=self.group)
         return loss, final
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One optimizer step on a host batch {'image': (B, H, W, 3) uint8,
         'depth': (B, H, W) f32, 'focal': (B,)}; returns device scalars
-        (loss, depth_mean, grad_norm) and the learning rate applied."""
+        (loss, depth_mean, grad_norm) and the learning rate applied.  In a
+        data-parallel run the batch is this rank's rows of the global batch
+        (``parallel.rank_rows``)."""
         dev = self.device
         images = torch.as_tensor(batch["image"]).to(dev, non_blocking=True)
         depths = torch.as_tensor(batch["depth"]).to(dev, non_blocking=True)
@@ -85,10 +121,15 @@ class Trainer:
         for i in range(accum):
             sl = slice(i * mb, (i + 1) * mb)
             gen = step_generator(self.cfg.seed, self.step, None if accum == 1 else i)
-            loss, final = self._loss(images[sl], depths[sl], focal[sl], gen)
-            (loss / accum).backward()
+            last = i == accum - 1
+            with self.ddp.no_sync() if self.ddp is not None and not last else contextlib.nullcontext():
+                loss, final = self._loss(images[sl], depths[sl], focal[sl], gen)
+                (loss / accum).backward()
             loss_sum = loss_sum + loss.detach()
             depth_sum = depth_sum + final.detach().mean()
+        if self.group is not None:
+            dist.all_reduce(depth_sum, group=self.group)
+            depth_sum = depth_sum / self.world
         grad_norm = torch.nn.utils.get_total_norm([p.grad for p in self.params if p.grad is not None])
         lr = self.scheduler.get_last_lr()[0]
         self.optimizer.step()
@@ -98,8 +139,25 @@ class Trainer:
                 "grad_norm": grad_norm, "learning_rate": lr}
 
     def state_dict(self) -> dict:
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+        """Model, optimizer, schedule and step.  Under ZeRO-1 every rank must
+        call it (it gathers the optimizer state on rank 0), and only rank 0's
+        holds the optimizer state (None elsewhere)."""
+        opt = self.optimizer
+        if isinstance(opt, ZeroRedundancyOptimizer):
+            opt.consolidate_state_dict(to=0)
+            opt_state = opt.state_dict() if parallel.is_primary() else None
+        else:
+            opt_state = opt.state_dict()
+        return {"model": self.model.state_dict(), "optimizer": opt_state,
                 "scheduler": self.scheduler.state_dict(), "step": self.step}
+
+    def save(self, mgr, step: int) -> None:
+        """Checkpoint into ``mgr`` (``utils/checkpoint.py``): every rank
+        gathers, rank 0 writes, the others wait for it."""
+        state = self.state_dict()
+        if parallel.is_primary():
+            mgr.save(step, state)
+        parallel.barrier()
 
     def load_state_dict(self, state: dict) -> None:
         self.model.load_state_dict(state["model"])

@@ -1,13 +1,16 @@
 """Preemption-safe training: SIGTERM -> finish the step -> checkpoint -> exit 0;
-counterpart of ``bts_tpu/utils/preemption.py`` for one process.
+counterpart of ``bts_tpu/utils/preemption.py``.
 
     SIGTERM -> finish the in-flight step -> final checkpoint
             -> exit 0 (the scheduler restarts the command; sample-exact
                resume continues the data stream at the saved step)
 
-The JAX package ORs the stop flag over processes at a fixed step cadence;
-the port trains on one process until data parallelism is ported
-(ROADMAP.md), and a multi-process guard raises.
+Several processes may see the signal at different steps.  A rank that left
+the loop a step early would leave the others waiting in the next collective
+until the grace window kills the job, losing the checkpoint the guard exists
+to write.  So with more than one process ``should_stop`` decides only at
+every ``sync_freq``-th step, where every rank contributes its flag to a
+global OR (a MAX all-reduce), and all ranks break at the same step.
 """
 
 from __future__ import annotations
@@ -15,19 +18,21 @@ from __future__ import annotations
 import signal
 from typing import Iterable
 
+import torch
+import torch.distributed as dist
+
+from bts_tpu_torch.parallel import distributed as parallel
+
 
 class PreemptionGuard:
     """Install signal handlers that request a cooperative training stop.
-    Only the main thread may install signal handlers (CPython's rule)."""
+    Only the main thread may install signal handlers (CPython's rule).
+    ``device``: where the flag's all-reduce runs (a CUDA device for NCCL)."""
 
-    def __init__(self, signals: Iterable[int] = (signal.SIGTERM,)):
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "the multi-process preemption stop is not ported to bts_tpu_torch yet "
-                "(ROADMAP.md, 'DDP/ZeRO')"
-            )
+    def __init__(self, signals: Iterable[int] = (signal.SIGTERM,), sync_freq: int = 10,
+                 device="cpu"):
+        self.sync_freq = max(1, int(sync_freq))
+        self.device = torch.device(device)
         self._flag = False
         self._prev = {}
         for s in signals:
@@ -43,11 +48,21 @@ class PreemptionGuard:
 
     @property
     def preempted(self) -> bool:
+        """This process's flag, for reporting after the loop."""
         return self._flag
 
     def should_stop(self, step: int) -> bool:
-        """True once a signal has arrived (one process: no cadence needed)."""
-        return self._flag
+        """True when every process should break after ``step``: one process,
+        its flag at once; several, the OR of every rank's flag, taken only
+        when ``step % sync_freq == 0`` so that all ranks enter the
+        all-reduce at the same step."""
+        if parallel.world() == 1:
+            return self._flag
+        if step % self.sync_freq != 0:
+            return False
+        flag = torch.tensor([int(self._flag)], dtype=torch.int32, device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def uninstall(self) -> None:
         """Restore the previous handlers."""

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (the literal and the fused decoder
-tail), its training paths (config 4 and config 3), the other encoders, the
-evaluation entry points, the serving entry points (convert, export, HTTP,
-sequence) and its public LPG op once on one NVIDIA GPU and check them.
+tail), its training paths (config 4 and config 3, config 4 also under
+torch.distributed), the other encoders, the evaluation entry points, the
+serving entry points (convert, export, HTTP, sequence) and its public LPG op
+once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repo root; one CUDA card, nvcc
 
@@ -89,17 +90,37 @@ Phases, one JSON line each, then the result:
                 (kernel, use_pallas="never") in turns, with each path's peak
                 memory; a torch.profiler window of 2 steps for the device
                 busy share and the top kernels.
-10. kernel_nyu - K1 and K2 at the three config-3 heads (NYU 416x544, b4)
+10. train_ddp - config 4 under torch.distributed.  (a) bts_main
+                (@arguments/arguments_train_eigen.txt: DenseNet-161, b16,
+                bf16, remat 'layer') through python -m torch.distributed.run
+                --nproc_per_node 1, NCCL, on a synthetic KITTI tree of 16
+                375x1242 frames (KB crop, then 352x704) for 12 steps: 3 K1 +
+                3 K2 per step (and 3 K1 for the step-1 summary forward), ms
+                per step (median, q1, q3 of 10 after 2), images/s, peak
+                memory, beside the train phase's; before it, one f32 b2 step
+                through DistributedDataParallel against the unwrapped step
+                made in this process (the train phase's rules).  (b) two
+                ranks under torchrun in a gloo group, both on cuda:0: one
+                f32 step at a global b4 (2 x b2) against the world-1 b4 step
+                (loss rtol 1e-5, BatchNorm statistics 1e-5, each gradient
+                tensor within the larger of 1e-3 and twice the distance one
+                ulp of every weight moves it); ZeRO-1 against replicated
+                AdamW over two steps of the same gradients (parameters
+                1e-6) and each rank's optimizer-state bytes (about half);
+                ms per step at b16 (2 x b8, bf16), 3 K1 + 3 K2 per step per
+                rank.  The ranks are this script (train_ddp_rank); a failed
+                rank fails the phase.
+11. kernel_nyu - K1 and K2 at the three config-3 heads (NYU 416x544, b4)
                 and K1 at the three heads of a NYU online eval (480x640, b4),
                 f32 and bf16 raw, by the rules and with the columns of
                 kernel_bwd; the per-step sums of config 3.
-11. encoders  - ResNet-50/101, ResNeXt-50/101 and MobileNetV2 serving at
+12. encoders  - ResNet-50/101, ResNeXt-50/101 and MobileNetV2 serving at
                 352x1216 b1 (bts_size 512, seeded weights): one f32 forward
                 with 3 K1 launches against use_pallas="never" (maps by K1's
                 rule, final rtol 1e-5) and against the CPU at 64x96 (rtol
                 2e-4, atol 2e-4*max|ref|); median ms of 5 bf16 forwards and
                 the peak memory.
-12. train_nyu - config 3 (ResNeXt-101, NYU 480x640 frames border-cropped to
+13. train_nyu - config 3 (ResNeXt-101, NYU 480x640 frames border-cropped to
                 427x565 and augmented to 416x544 with rotation <= 2.5
                 degrees, depth in [0.2, 9.5) m, b4, bf16, no remat, AdamW lr
                 1e-4, wd 1e-2, eps 1e-3) through create_model + Trainer, by
@@ -111,7 +132,7 @@ Phases, one JSON line each, then the result:
                 2 warm-up and 10 timed b4 bf16 steps (3 K1 and 3 K2
                 launches each): ms per step, images/s, peak memory; a
                 torch.profiler window of 2 steps (busy share, top kernels).
-13. eval      - the entry points on a synthetic NYU tree of 10 frames at
+14. eval      - the entry points on a synthetic NYU tree of 10 frames at
                 480x640: bts_main with the config-3 recipe
                 (arguments/arguments_train_nyu.txt, ResNeXt-101, b4) for 4
                 steps with --do_online_eval --eval_freq 2 (3 K1 launches per
@@ -125,7 +146,7 @@ Phases, one JSON line each, then the result:
                 eval (KB crop, garg crop, padded back to 375x1242) of the
                 config-4 state from phase 9 over 20 frames at b16: finite,
                 3 K1 launches per batch forward, images/s.
-14. serving   - DenseNet-161, bts_size 512, KITTI, seeded weights, f32:
+15. serving   - DenseNet-161, bts_size 512, KITTI, seeded weights, f32:
                 an upstream-style full .pth ({"model": module.encoder.
                 base_model.* / module.decoder.*}) through bts_convert, read
                 back by read_weights equal to the source; bts_export at
@@ -149,10 +170,10 @@ Phases, one JSON line each, then the result:
                 2): 3 K1 per batch forward, each PNG within 1 unit of
                 bts_test's for the same frame, through the kernels and
                 through --use_pallas never; frames/s.
-15. result    - {"kernels": [...]}: all six kernels, launches by main path
-                (serve, serve_tail, train, op, encoders, train_nyu, eval,
-                export, serve_http, sequence; each path's counts set to 0
-                just before it runs), and ms,
+16. result    - {"kernels": [...]}: all six kernels, launches by main path
+                (serve, serve_tail, train, train_ddp, op, encoders,
+                train_nyu, eval, export, serve_http, sequence; each path's
+                counts set to 0 just before it runs), and ms,
                 plain_ms, bound_ms per the unit
                 named in "per" (K1, K2: a training step's three heads, bf16
                 raw; K3: the three serving heads; K4: the three config-4
@@ -1008,16 +1029,28 @@ def train_batch(b: int, h: int, w: int, seed: int) -> dict:
             "focal": np.full((b,), FOCAL, np.float32)}
 
 
+def named_grads(model) -> dict:
+    return {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def tensor_gaps(grads: dict, ref: dict) -> dict:
+    """|g - g_ref| / |g_ref| per tensor, the denominator floored at 1e-6 of
+    the global gradient norm (see :func:`grad_gaps`)."""
+    floor = 1e-6 * torch.sqrt(sum(r.square().sum() for r in ref.values())).item()
+    return {n: ((g - ref[n]).norm() / max(ref[n].norm().item(), floor)).item() for n, g in grads.items()}
+
+
 def grad_gaps(model, ref_model) -> dict:
     """Per-tensor |g - g_ref| / |g_ref|, the denominator floored at 1e-6 of
     the global gradient norm (a conv bias followed by a train-mode BatchNorm
     has an exactly-zero gradient in exact arithmetic, and its rounding noise
-    is no gap), the five worst, and the gap of the whole gradient."""
-    pairs = [(n, p.grad.detach().float().cpu(), r.grad.detach().float().cpu())
-             for (n, p), (_, r) in zip(model.named_parameters(), ref_model.named_parameters())]
+    is no gap), the five worst, and the gap of the whole gradient.  Each
+    argument is a model or its :func:`named_grads`."""
+    grads, ref = (x if isinstance(x, dict) else named_grads(x) for x in (model, ref_model))
+    pairs = [(n, g, ref[n]) for n, g in grads.items()]
     total = torch.sqrt(sum(r.square().sum() for _, _, r in pairs)).item()
     floor = 1e-6 * total
-    gaps = {n: ((g - r).norm() / max(r.norm().item(), floor)).item() for n, g, r in pairs}
+    gaps = tensor_gaps(grads, ref)
     worst = sorted(gaps, key=gaps.get, reverse=True)[:5]
     diff = torch.sqrt(sum((g - r).square().sum() for _, g, r in pairs)).item()
     return {"worst_gap": gaps[worst[0]], "worst": [[n, gaps[n]] for n in worst],
@@ -1036,6 +1069,15 @@ def train_config(**kw):
     return Config(**base)
 
 
+def perturbed(model, perturb: float):
+    """``model`` with every weight scaled by 1 +- perturb (a seeded sign)."""
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_((1 + perturb * (torch.randint(0, 2, p.shape, generator=gen) * 2 - 1)).to(p.device))
+    return model
+
+
 def one_step(cfg, device, batch, use_pallas=None, perturb: float = 0.0):
     """A fresh seeded model and trainer on ``device``, one step on ``batch``;
     ``perturb``: every weight first scaled by 1 +- perturb (a seeded sign)."""
@@ -1046,10 +1088,7 @@ def one_step(cfg, device, batch, use_pallas=None, perturb: float = 0.0):
     if use_pallas is not None:
         model.decoder.use_pallas = use_pallas
     if perturb:
-        gen = torch.Generator().manual_seed(0)
-        with torch.no_grad():
-            for p in model.parameters():
-                p.mul_((1 + perturb * (torch.randint(0, 2, p.shape, generator=gen) * 2 - 1)).to(p.device))
+        perturbed(model, perturb)
     trainer = Trainer(model, cfg, total_steps=100, device=device)
     metrics = trainer.train_step(batch)
     return model, float(metrics["loss"])
@@ -1162,7 +1201,7 @@ def phase_train(card: str) -> dict:
 
     rec["profile_2_steps"] = profile_steps(trainer, batch)
     emit(rec)
-    return launches, model
+    return rec, model
 
 
 def profile_steps(trainer, batch, steps: int = 2) -> dict:
@@ -1186,6 +1225,246 @@ def profile_steps(trainer, batch, steps: int = 2) -> dict:
         "top_kernels_ms": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top],
     }
 
+
+
+DDP_STEPS, DDP_FRAMES = 12, 16  # train_ddp (a): bts_main steps under torchrun, frames of the tree
+DDP_TIMED = 4  # train_ddp (b): timed b16 steps of the two ranks, after 2 warm-up
+
+
+def _step_record(cfg, batch, device, perturb: float = 0.0) -> dict:
+    """One f32 step of a fresh seeded model through the Trainer: the loss,
+    the gradient and the BatchNorm buffers, on the host; ``perturb`` as
+    :func:`one_step`'s."""
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.training.trainer import Trainer
+
+    model = perturbed(create_model(cfg, device), perturb)
+    trainer = Trainer(model, cfg, total_steps=100, device=device)
+    loss = float(trainer.train_step(batch)["loss"])
+    return {"loss": loss, "grads": named_grads(model), "ddp": trainer.ddp is not None,
+            "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()}}
+
+
+def _step_gaps(rec: dict, ref: dict) -> dict:
+    """The train phase's comparison of two f32 steps, and the BatchNorm
+    buffers.  With ``ref["probe_grads"]`` (the reference step from weights
+    moved by one ulp): each tensor's gap beside twice the probe's, and the
+    tensors over max(1e-3, that)."""
+    gaps = grad_gaps(rec["grads"], ref["grads"])
+    bn = max((rec["buffers"][n] - b).abs().max().item() for n, b in ref["buffers"].items())
+    out = {"loss": rec["loss"], "ref_loss": ref["loss"],
+           "loss_rel_err": abs(rec["loss"] - ref["loss"]) / abs(ref["loss"]), "bn_buffers_max_abs_err": bn,
+           **{k: gaps[k] for k in ("worst_gap", "worst", "global_gap", "tensors")}}
+    if "probe_grads" in ref:
+        probe, mine = tensor_gaps(ref["probe_grads"], ref["grads"]), tensor_gaps(rec["grads"], ref["grads"])
+        out["ulp_probe"] = {"global_gap": grad_gaps(ref["probe_grads"], ref["grads"])["global_gap"],
+                            "worst_gap": max(probe.values()),
+                            "over_rule": {n: [g, probe[n]] for n, g in mine.items() if g > max(1e-3, 2 * probe[n])}}
+    return out
+
+
+def _quartiles(times) -> dict:
+    q = statistics.quantiles(times, n=4)
+    return {"median": statistics.median(times), "q1": q[0], "q3": q[2], "n": len(times)}
+
+
+def _torchrun(nproc: int, mode: str, tmp: Path) -> list:
+    """This script as ``nproc`` ranks under torchrun (``train_ddp_rank
+    <mode> <tmp>``); returns each rank's record, by rank.  A failed rank
+    fails the launch and the phase."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+           str(Path(__file__).resolve()), "train_ddp_rank", mode, str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    tag = '{"phase": "train_ddp_rank"'
+    recs = [json.loads(line[line.index(tag):]) for line in proc.stdout.splitlines() if tag in line]
+    check(proc.returncode == 0 and len(recs) == nproc,
+          f"torchrun {mode}: exit {proc.returncode}\\n{proc.stdout[-4000:]}\\n{proc.stderr[-6000:]}")
+    return sorted(recs, key=lambda r: r["rank"])
+
+
+def phase_train_ddp(card: str, train_rec: dict) -> dict:
+    """Config 4 under torch.distributed.  (a) bts_main through torchrun,
+    one rank over NCCL, on a synthetic KITTI tree; (b) two ranks on the one
+    card over gloo.  The world-1 references are made here, in this process,
+    without a process group.  Returns (a)'s K1 and K2 launches."""
+    import tempfile
+
+    from bts_tpu_torch.models.bts import set_float32_precision
+
+    set_float32_precision()
+    rec = {"phase": "train_ddp", "card": card,
+           "config": "config 4 as the train phase; (a) bts_main @arguments/arguments_train_eigen.txt under torchrun "
+                     "(NCCL, world 1), (b) two gloo ranks on cuda:0"}
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        # the unwrapped f32 steps the ranks are held to: b2 for (a), b4 for (b)
+        # and, for (b), the b4 step from weights moved by one ulp (2^-23): how
+        # far f32 rounding alone moves this gradient
+        for b, seed in ((2, 1), (4, 4)):
+            cfg = train_config(compute_dtype="float32", batch_size=b)
+            batch = train_batch(b, H, W, seed=seed)
+            ref = _step_record(cfg, batch, "cuda")
+            if b == 4:
+                ref["probe_grads"] = _step_record(cfg, batch, "cuda", perturb=2**-23)["grads"]
+            torch.save(ref, tmp / f"ref_b{b}.pt")
+        torch.cuda.empty_cache()
+        _png_tree(tmp / "kitti", DDP_FRAMES, KITTI_FULL, "kitti", seed=12)
+
+        t0 = time.perf_counter()
+        (a,) = _torchrun(1, "nccl", tmp)
+        rec["nccl_world1"] = dict(a, seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        b = _torchrun(2, "gloo", tmp)
+        rec["gloo_world2"] = {"ranks": b, "seconds": time.perf_counter() - t0}
+    rec["train_phase_same_call"] = {k: train_rec[k] for k in ("ms_per_step", "images_per_s", "peak_mem_gib")}
+    emit(rec)
+    # (a) the train phase's rules for the kernel path against never
+    g = a["ddp_vs_unwrapped_f32_b2"]
+    check(g["loss_rel_err"] <= 1e-4 and g["worst_gap"] <= 1e-3, f"DDP (NCCL) vs unwrapped: {g}")
+    # (b) the world-1 step: loss 1e-5 relative, BatchNorm statistics 1e-5,
+    # each gradient tensor within the larger of 1e-3 and twice the distance
+    # one ulp of every weight moves it, the whole gradient within the larger
+    # of 1e-3 and twice the probe's (the world-2 forward sums in another
+    # order; through ReLU masks at zero the f32 gradient moves by as much
+    # as a one-ulp change of the weights moves it)
+    for r in b:
+        g = r["world2_vs_world1_f32_b4"]
+        probe = g["ulp_probe"]
+        check(g["loss_rel_err"] <= 1e-5 and g["bn_buffers_max_abs_err"] <= 1e-5 and not probe["over_rule"]
+              and g["global_gap"] <= max(1e-3, 2 * probe["global_gap"]), f"rank {r['rank']} of 2 vs world 1: {g}")
+        z = r["zero_vs_replicated"]
+        check(max(z["param_max_abs_err_per_step"]) <= 1e-6, f"rank {r['rank']} ZeRO-1 vs replicated: {z}")
+        share = z["optimizer_state_bytes"] / z["replicated_state_bytes"]
+        check(z["optimizer"] == "ZeroRedundancyOptimizer" and 0.3 < share < 0.7, f"ZeRO-1 state share {share}")
+        steps = r["steps"]
+        check(r["launches"] == {"lpg_fused": 3 * steps, "lpg_fused_bwd": 3 * steps}, f"rank {r['rank']}: {r}")
+    held = sum(r["zero_vs_replicated"]["optimizer_state_bytes"] for r in b)
+    check(held == b[0]["zero_vs_replicated"]["replicated_state_bytes"], f"ZeRO-1 shards hold {held} bytes")
+    return a["launches"]
+
+
+def ddp_rank(mode: str, tmp: str) -> int:
+    """One rank of the train_ddp phase, started by torchrun; prints its
+    record as one JSON line.  ``nccl``: bts_main's process group (world 1),
+    the f32 b2 step through DDP against the unwrapped one, then bts_main
+    for DDP_STEPS steps on the tree.  ``gloo``: a gloo group made here, both
+    ranks on cuda:0; the f32 step at a global b4 against world 1, ZeRO-1
+    against replicated AdamW over two steps of the same gradients, and
+    timed b16 steps."""
+    import torch.distributed as dist
+
+    from bts_tpu_torch.cli import bts_main
+    from bts_tpu_torch.models.bts import create_model, set_float32_precision
+    from bts_tpu_torch.ops import lpg_cuda
+    from bts_tpu_torch.ops.lpg_cuda import lpg_fused, lpg_fused_bwd
+    from bts_tpu_torch.parallel import distributed as parallel
+    from bts_tpu_torch.training.optimizer import state_bytes
+    from bts_tpu_torch.training.trainer import Trainer
+
+    tmp = Path(tmp)
+    set_float32_precision()
+    lpg_cuda._lib()  # built by the parent under build/torch_kernels
+    if mode == "nccl":
+        parallel.maybe_init_distributed(train_config())
+        check(dist.get_backend() == "nccl" and parallel.world() == 1, f"{dist.get_backend()} {parallel.world()}")
+    else:
+        dist.init_process_group("gloo")
+    rank, world = parallel.rank(), parallel.world()
+    device = torch.device("cuda", 0) if mode == "gloo" else parallel.local_device(torch.device("cuda"))
+    torch.cuda.set_device(device)
+    rec = {"phase": "train_ddp_rank", "mode": mode, "rank": rank, "world": world, "device": str(device)}
+    try:
+        if mode == "nccl":
+            # (a) one f32 b2 step through DDP against the unwrapped step
+            cfg = train_config(compute_dtype="float32", batch_size=2)
+            step = _step_record(cfg, train_batch(2, H, W, seed=1), device)
+            rec["ddp_vs_unwrapped_f32_b2"] = _step_gaps(step, torch.load(tmp / "ref_b2.pt"))
+            check(step["ddp"], "the step did not run through DistributedDataParallel")
+            torch.cuda.empty_cache()
+
+            # the main path: bts_main with the config-4 recipe on the tree
+            times = []
+            train_step = Trainer.train_step
+
+            def timed(self, batch):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = train_step(self, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            Trainer.train_step = timed
+            data = str(tmp / "kitti")
+            argv = ["@arguments/arguments_train_eigen.txt", "--device", "cuda", "--num_devices", "1",
+                    "--input_height", str(TRAIN_H), "--input_width", str(TRAIN_W),
+                    "--remat", "--remat_policy", "layer", "--compute_dtype", "bfloat16",
+                    "--num_epochs", str(DDP_STEPS), "--data_path", data, "--gt_path", data,
+                    "--filenames_file", str(tmp / "kitti" / "split.txt"), "--use_native_loader", "never",
+                    "--log_directory", str(tmp / "runs"), "--model_name", "c4_ddp", "--save_freq", "1000"]
+            torch.cuda.reset_peak_memory_stats()
+            lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
+            check(bts_main.main(argv) == 0, "bts_main")
+            launches = {"lpg_fused": lpg_fused.launches, "lpg_fused_bwd": lpg_fused_bwd.launches}
+            # 3 K1 + 3 K2 per step, and 3 K1 for the step-1 summary forward
+            check(launches == {"lpg_fused": 3 * DDP_STEPS + 3, "lpg_fused_bwd": 3 * DDP_STEPS},
+                  f"{launches} in {DDP_STEPS} steps")
+            check(len(times) == DDP_STEPS, f"{len(times)} steps")
+            timing = _quartiles(times[WARMUP_STEPS:])
+            rec.update(launches=launches, steps=DDP_STEPS, ms_per_step=timing,
+                       images_per_s=TRAIN_B * 1e3 / timing["median"],
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        else:
+            # (b) the f32 step at a global b4, this rank's rows, against world 1
+            cfg = train_config(compute_dtype="float32", batch_size=4)
+            rows = parallel.rank_rows(4, 1, rank, world)
+            local = {k: v[rows] for k, v in train_batch(4, H, W, seed=4).items()}
+            step = _step_record(cfg, local, device)
+            rec["world2_vs_world1_f32_b4"] = _step_gaps(step, torch.load(tmp / "ref_b4.pt"))
+            check(step["ddp"], "the step did not run through DistributedDataParallel")
+            del step
+            # ZeRO-1 against replicated AdamW: two steps, each fed the same gradients
+            rep = Trainer(create_model(cfg, device), cfg, total_steps=100, device=device)
+            zcfg = cfg.replace(shard_opt_state=True)
+            zero = Trainer(create_model(zcfg, device), zcfg, total_steps=100, device=device)
+            gaps = []
+            for _ in range(2):
+                rep.train_step(local)
+                for p, q in zip(zero.params, rep.params):
+                    p.grad = q.grad.clone()
+                zero.optimizer.step()
+                zero.scheduler.step()
+                gaps.append(max((p - q).abs().max().item() for p, q in zip(zero.params, rep.params)))
+            rec["zero_vs_replicated"] = {
+                "param_max_abs_err_per_step": gaps, "optimizer": type(zero.optimizer).__name__,
+                "optimizer_state_bytes": state_bytes(zero.optimizer),
+                "replicated_state_bytes": state_bytes(rep.optimizer)}
+            del rep, zero
+            torch.cuda.empty_cache()
+            # timed b16 steps: this rank's b8, bf16, remat
+            cfg = train_config()
+            rows = parallel.rank_rows(TRAIN_B, 1, rank, world)
+            local = {k: v[rows] for k, v in train_batch(TRAIN_B, H, W, seed=3).items()}
+            trainer = Trainer(create_model(cfg, device), cfg, total_steps=100, device=device)
+            torch.cuda.reset_peak_memory_stats()
+            lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
+            times = []
+            for i in range(WARMUP_STEPS + DDP_TIMED):
+                t = time.perf_counter()
+                metrics = trainer.train_step(local)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            steps = WARMUP_STEPS + DDP_TIMED
+            rec.update(launches={"lpg_fused": lpg_fused.launches, "lpg_fused_bwd": lpg_fused_bwd.launches},
+                       steps=steps, loss=float(metrics["loss"]), ms_per_step_b16=_quartiles(times[WARMUP_STEPS:]),
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        emit(rec)
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 def _heads(*models) -> dict:
     """The raw reduction outputs of the last forward of any of ``models``, by head."""
@@ -1907,20 +2186,24 @@ def main() -> int:
     per_tail = phase_tail(card, clocks_lib)
     serve_launches = phase_slice(card)
     tail_launches = phase_slice_tail(card)
-    train_launches, kitti_model = phase_train(card)
+    train_rec, kitti_model = phase_train(card)
+    train_launches = train_rec["launches"]
+    ddp_launches = phase_train_ddp(card, train_rec)
     phase_kernel_nyu(card)
     encoder_launches = phase_encoders(card)
     nyu_launches = phase_train_nyu(card)
     eval_launches = phase_eval(card, kitti_model)
     del kitti_model
     serving = phase_serving(card)
-    paths = ("serve", "serve_tail", "train", "op", "encoders", "train_nyu", "eval", "export", "serve_http",
-             "sequence")
+    paths = ("serve", "serve_tail", "train", "train_ddp", "op", "encoders", "train_nyu", "eval", "export",
+             "serve_http", "sequence")
     by_path = {name: dict.fromkeys(paths, 0) for name, _, _, _ in KERNELS}
     by_path["lpg_fused"].update(serve=serve_launches, serve_tail=tail_launches["lpg_fused"],
-                                train=train_launches["lpg_fused"], encoders=encoder_launches,
+                                train=train_launches["lpg_fused"], train_ddp=ddp_launches["lpg_fused"],
+                                encoders=encoder_launches,
                                 train_nyu=nyu_launches["lpg_fused"], eval=eval_launches["lpg_fused"])
     by_path["lpg_fused_bwd"].update(train=train_launches["lpg_fused_bwd"],
+                                    train_ddp=ddp_launches["lpg_fused_bwd"],
                                     train_nyu=nyu_launches["lpg_fused_bwd"], eval=eval_launches["lpg_fused_bwd"])
     by_path["lpg_plane"]["op"] = op_launches["lpg_plane"]
     by_path["lpg_plane_bwd"]["op"] = op_launches["lpg_plane_bwd"]
@@ -1958,4 +2241,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["train_ddp_rank"]:  # a rank of the train_ddp phase, started by torchrun
+        sys.exit(ddp_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -371,3 +371,121 @@ def test_exported_program_launches_the_kernels(card, tmp_path, fused_tail, monke
     with torch.inference_mode():
         want = fwd(images.to(card), focal.to(card))
     assert got.shape == (2, 32, 64, 1) and torch.equal(got, want)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tiny_trainer(card):
+    """A tiny DenseNet under the BTS decoder (bts_size 64), seeded, and its
+    Trainer at the config-4 training size: b2 KITTI frames of 352x1216
+    augmented to 352x704, so K1 and K2 run at config-4 head shapes."""
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import BtsDecoder, BtsModel, init_weights
+    from bts_tpu_torch.models.encoders.densenet import DenseNet
+    from bts_tpu_torch.training.trainer import Trainer
+
+    cfg = Config(mode="train", encoder="densenet121_bts", bts_size=64, dataset="kitti", input_height=352,
+                 input_width=704, batch_size=2, compute_dtype="float32", do_random_rotate=True, device="cuda")
+    encoder = DenseNet(growth_rate=8, block_config=(1, 1, 2, 1), num_init_features=16)
+    model = BtsModel(encoder, BtsDecoder(encoder.channels, cfg.max_depth, cfg.bts_size))
+    init_weights(model, torch.Generator().manual_seed(3))
+    return Trainer(model.to(card), cfg, total_steps=10, device=card)
+
+
+def test_ddp_over_nccl_at_world1_equals_the_unwrapped_step(card, monkeypatch):
+    """A NCCL group of one: the step runs inside DistributedDataParallel with
+    3 K1 + 3 K2 launches and equals the unwrapped step (loss rtol 1e-5, each
+    gradient tensor within 1e-3 of its norm, as the train phase of
+    chip_smoke.py holds two f32 steps)."""
+    import torch.distributed as dist
+
+    from bts_tpu_torch.models.bts import set_float32_precision
+
+    set_float32_precision()
+    rng = np.random.default_rng(1)
+    depth = rng.uniform(1.0, 80.0, (2, 352, 1216)).astype(np.float32)
+    depth[rng.random(depth.shape) >= 0.05] = 0.0
+    batch = {"image": rng.integers(0, 256, (2, 352, 1216, 3), dtype=np.uint8), "depth": depth,
+             "focal": np.full((2,), 721.5377, np.float32)}
+    ref = _tiny_trainer(card)
+    ref_loss = float(ref.train_step(batch)["loss"])
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        trainer = _tiny_trainer(card)
+        assert trainer.ddp is not None
+        monkeypatch.setattr(lpg_cuda.lpg_fused, "launches", 0)
+        monkeypatch.setattr(lpg_cuda.lpg_fused_bwd, "launches", 0)
+        loss = float(trainer.train_step(batch)["loss"])
+        torch.cuda.synchronize()
+        assert (lpg_cuda.lpg_fused.launches, lpg_cuda.lpg_fused_bwd.launches) == (3, 3)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    grads = {n: p.grad for n, p in ref.model.named_parameters()}
+    total = torch.sqrt(sum(g.square().sum() for g in grads.values())).item()
+    for n, p in trainer.model.named_parameters():
+        gap = (p.grad - grads[n]).norm().item()
+        assert gap <= max(1e-3 * grads[n].norm().item(), 1e-6 * total), (n, gap)
+
+
+def _bn_rank(rank, world, port, x, gy, out):
+    """One gloo rank on cuda:0: a train-mode BatchNorm over the process
+    group on its two samples of ``x``, forward and backward of sum(y * gy)."""
+    import os
+
+    import torch.distributed as dist
+
+    from bts_tpu_torch.models.layers import BatchNorm
+
+    torch.cuda.set_device(0)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dist.init_process_group("gloo", rank=rank, world_size=world)
+    try:
+        bn = BatchNorm(x.shape[1]).cuda().train()
+        bn.process_group = dist.group.WORLD
+        rows = slice(2 * rank, 2 * rank + 2)
+        xr = x[rows].cuda().requires_grad_()
+        y = bn(xr)
+        (y * gy[rows].cuda()).sum().backward()
+        torch.save({"y": y.detach().cpu(), "dx": xr.grad.cpu(), "dw": bn.weight.grad.cpu(),
+                    "db": bn.bias.grad.cpu(), "mean": bn.running_mean.cpu(), "var": bn.running_var.cpu()},
+                   f"{out}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_batchnorm_global_moments_on_cuda_under_gloo(card, tmp_path):
+    """Two gloo ranks on the one card, each with half of a b4 batch: the
+    all-reduced moments give the output, input gradient, running statistics
+    and (summed over the ranks) the affine gradients of one BatchNorm over
+    the whole batch; rtol 1e-5, atol 1e-6 of each reference's largest value."""
+    import torch.multiprocessing as mp
+
+    from bts_tpu_torch.models.layers import BatchNorm
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy((rng.normal(size=(4, 8, 12, 20)) * 2 + 0.5).astype(np.float32))
+    gy = torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+    mp.spawn(_bn_rank, args=(2, _free_port(), x, gy, str(tmp_path / "bn")), nprocs=2, join=True)
+    ranks = [torch.load(tmp_path / f"bn.{r}") for r in range(2)]
+    bn = BatchNorm(8).to(card).train()
+    xc = x.to(card).requires_grad_()
+    y = bn(xc)
+    (y * gy.to(card)).sum().backward()
+    want = {"y": y.detach(), "dx": xc.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
+            "mean": bn.running_mean, "var": bn.running_var}
+    got = {"y": torch.cat([r["y"] for r in ranks]), "dx": torch.cat([r["dx"] for r in ranks]),
+           "dw": ranks[0]["dw"] + ranks[1]["dw"], "db": ranks[0]["db"] + ranks[1]["db"],
+           "mean": ranks[0]["mean"], "var": ranks[0]["var"]}
+    assert torch.equal(ranks[1]["mean"], got["mean"]) and torch.equal(ranks[1]["var"], got["var"])
+    for k, w in want.items():
+        w = w.cpu()
+        torch.testing.assert_close(got[k], w, rtol=1e-5, atol=1e-6 * w.abs().max().item(), msg=k)

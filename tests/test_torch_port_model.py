@@ -177,11 +177,12 @@ class _JTiny(fnn.Module):
     """A tiny DenseNet + BtsDecoder, with BtsModel's subtree names."""
 
     pad_style: str
+    num_features: int = NF
 
     @fnn.compact
     def __call__(self, image, focal):
         feats = JDenseNet(pad_style=self.pad_style, **TINY)(image, False)
-        return JBtsDecoder(max_depth=MAX_DEPTH, num_features=NF)(feats, False, focal)
+        return JBtsDecoder(max_depth=MAX_DEPTH, num_features=self.num_features)(feats, False, focal)
 
 
 @pytest.mark.parametrize("pad_style", ["same", "torch"])
@@ -206,6 +207,46 @@ def test_tiny_slice_matches_jax(pad_style):
     assert len(outs) == len(ref) == 5
     for name, port, r in zip(("depth8", "depth4", "depth2", "depth1x1", "final"), outs, ref):
         assert port.dtype == torch.float32, name
+        _assert_close_nhwc(port, r, rtol=2e-4, scale_tol=2e-4)
+
+
+def _decoder_mapping_64():
+    """``decoder_mapping``'s entries for bts_size 64, which it refuses: the
+    reduction heads' chains at nf // 4, 8, 16 = 16, 8, 4 and none for
+    reduc1x1 (nf // 32 = 2: the JAX module passes its input through)."""
+    heads = {"reduc8x8": ("Reduction1x1_0", 16), "reduc4x4": ("Reduction1x1_1", 8),
+             "reduc2x2": ("Reduction1x1_2", 4), "reduc1x1": ("Reduction1x1_3", 2)}
+    entries = [e for e in TC.decoder_mapping(128) if e[1].split(".")[0] not in heads]
+    for prefix, (module, nf) in heads.items():
+        entries += TC._reduc_mapping(module, prefix, nf)
+    return entries
+
+
+def test_bts_size_64_matches_jax(monkeypatch):
+    """bts_size 64 (the JAX serving tests' tiny config): reduc1x1 has no conv
+    and passes upconv1's 4 channels through, so depth_1x1 has 4 channels and
+    conv1 takes 11; the forward matches bts_tpu's through a hand-built map."""
+    rng = np.random.default_rng(6)
+    image = rng.normal(size=(2, 64, 96, 3)).astype(np.float32)
+    focal = np.array([721.5377, 700.0], np.float32)
+    jm = _JTiny("same", num_features=64)
+    variables = _random_variables(jm, 7, jnp.zeros((1, 64, 96, 3)), None)
+    ref = jax.jit(jm.apply)(variables, jnp.asarray(image), jnp.asarray(focal))
+
+    model = create_model(Config(bts_size=64))
+    assert model.decoder.conv1.in_channels == 11 and not model.decoder.reduc1x1.convs
+    encoder = DenseNet(**TINY)
+    model = BtsModel(encoder, BtsDecoder(encoder.channels, MAX_DEPTH, 64)).eval()
+    entries = _decoder_mapping_64()
+    monkeypatch.setattr(TC, "decoder_mapping", lambda nf: entries)
+    sd = weights.state_dict_from_jax(
+        variables, "densenet121_bts", 64, encoder_mapping=TC.densenet_mapping(TINY["block_config"])
+    )
+    weights.load_state_dict(model, sd)
+    with torch.inference_mode():
+        outs = model(_nchw(image), torch.from_numpy(focal))
+    assert outs[3].shape == (2, 4, 64, 96)
+    for name, port, r in zip(("depth8", "depth4", "depth2", "depth1x1", "final"), outs, ref):
         _assert_close_nhwc(port, r, rtol=2e-4, scale_tol=2e-4)
 
 
@@ -262,6 +303,7 @@ PORT_MODULES = (
     "bts_tpu_torch.evaluation", "bts_tpu_torch.evaluation.metrics", "bts_tpu_torch.evaluation.best",
     "bts_tpu_torch.models.encoders.resnet", "bts_tpu_torch.models.encoders.mobilenetv2",
     "bts_tpu_torch.utils.serving", "bts_tpu_torch.cli.bts_export", "bts_tpu_torch.cli.bts_convert",
+    "bts_tpu_torch.parallel", "bts_tpu_torch.parallel.distributed",
 )
 NEEDS_PIL = ("bts_tpu_torch.data.crops", "bts_tpu_torch.data.depth_io",
              "bts_tpu_torch.data.dataloader", "bts_tpu_torch.cli.bts_main", "bts_tpu_torch.cli.bts_eval",
