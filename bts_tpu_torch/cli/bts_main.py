@@ -31,8 +31,16 @@ checkpoints and the step log.  A checkpoint holds the whole state whatever
 the world size, so a run resumes at another one.  A SIGTERM stops every rank
 at the same ``--preempt_sync_freq`` step.
 
-Not ported yet (each raises ``NotImplementedError``; ROADMAP.md):
-``--spatial_shards[_w]`` and ``--debug_nans``.
+Input: a PNG-tree split file through the native C++ loader or PIL
+(``--use_native_loader auto|always|never``), or ArrayRecord shards
+(``--filenames_file 'DIR/train-*.array_record'``, written by
+``python -m bts_tpu_torch.tools.make_records``); ``data/dataloader.py``.
+``--debug_nans`` fails the step at the first module whose output holds a
+NaN (``training/trainer.py::install_nan_checks``) and runs the backward in
+autograd's anomaly mode.
+
+Not ported yet (raises ``NotImplementedError``; ROADMAP.md):
+``--spatial_shards[_w]``.
 """
 
 from __future__ import annotations
@@ -66,13 +74,9 @@ from bts_tpu_torch.utils.summary import SummaryWriter
 
 
 def _refuse_unported(cfg) -> None:
-    unported = {
-        "--spatial_shards[_w] ('Modules to port' 8)": cfg.spatial_shards > 1 or cfg.spatial_shards_w > 1,
-        "--debug_nans": cfg.debug_nans,
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported to bts_tpu_torch yet (ROADMAP.md)")
+    if cfg.spatial_shards > 1 or cfg.spatial_shards_w > 1:
+        raise NotImplementedError(
+            "--spatial_shards[_w] ('Modules to port' 8) is not ported to bts_tpu_torch yet (ROADMAP.md)")
 
 
 def load_pretrained_encoder(model, path: str) -> None:
@@ -300,9 +304,10 @@ def train(cfg, device):
         from bts_tpu_torch.utils.preemption import PreemptionGuard
 
         guard = PreemptionGuard(sync_freq=cfg.preempt_sync_freq, device=device)
+    stream = loader.prefetched(start_step=trainer.step)  # sample-exact resume
     try:
         trainer.run(
-            loader.prefetched(start_step=trainer.step),  # sample-exact resume
+            stream,
             total_steps - trainer.step,
             on_metrics,
             lambda step: trainer.save(mgr, step),
@@ -311,6 +316,7 @@ def train(cfg, device):
             should_stop=guard.should_stop if guard is not None else None,
         )
     finally:
+        stream.close()  # stops the loader's threads (the native loader's C++ workers)
         if guard is not None:
             guard.uninstall()
     trainer.save(mgr, trainer.step)

@@ -13,8 +13,15 @@ A missing depth is spelled ``None`` in test-mode files.
 Modes: 'train' (seeded per-epoch shuffle, repeat, uint8 batches for the
 augmentation) and 'test' (images only); online eval decodes its split with
 :func:`load_sample` (``cli/bts_main.py::online_eval``).
-Not ported yet (ROADMAP.md): ArrayRecord shards and the native C++ decoder;
-``--use_native_loader auto`` takes the PIL path here.
+
+Three inputs, as in the reference package:
+- the PNG tree through PIL, with a Python prefetch thread;
+- the PNG tree through the native C++ loader (``data/native_loader.py``:
+  libpng/libjpeg decode, the crop fused into the row copy, whole batches
+  assembled by C++ threads), which ``--use_native_loader auto`` takes when
+  its library builds and ``always`` requires;
+- ArrayRecord shards (``data/records.py``), train mode only: a
+  ``--filenames_file`` ending in ``.array_record`` (a path or a glob).
 """
 
 from __future__ import annotations
@@ -28,11 +35,11 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 from PIL import Image
 
+from bts_tpu_torch.data import native_loader as nl
 from bts_tpu_torch.data.crops import kb_crop, nyu_border_crop
-from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.data.depth_io import depth_from_png
-
-RECORD_SUFFIXES = (".array_record", ".arrayrecord")
+from bts_tpu_torch.data.records import RecordSource, looks_like_records
+from bts_tpu_torch.parallel import distributed as parallel
 
 
 @dataclass
@@ -129,23 +136,30 @@ class BtsDataLoader:
         if mode not in ("train", "test"):
             raise ValueError(f"mode must be 'train' or 'test', got {mode!r}")
         fn, dp, gp = cfg.filenames_file, cfg.data_path, cfg.gt_path
-        if fn and fn.rstrip("*?[]").endswith(RECORD_SUFFIXES):
-            raise NotImplementedError(
-                f"ArrayRecord input ({fn}) is not ported to bts_tpu_torch yet "
-                "(ROADMAP.md, 'records/native loader'); use a PNG-tree split file"
-            )
-        if cfg.use_native_loader == "always":
-            raise NotImplementedError(
-                "--use_native_loader always: the native C++ loader is not ported to "
-                "bts_tpu_torch yet (ROADMAP.md, 'records/native loader'); auto/never use PIL"
-            )
         self.use_right = bool(cfg.use_right) and mode == "train"
-        self.samples = parse_filenames_file(fn, dp, gp)
-        self.n_base = len(self.samples)
-        # reference --use_right: the right camera is chosen per sample per
-        # epoch; left in [0, n), right in [n, 2n)
-        if self.use_right:
-            self.samples = self.samples + parse_filenames_file(fn, dp, gp, use_right=True)
+        self.record_source = None
+        if fn and looks_like_records(fn):
+            if mode != "train":
+                raise ValueError(
+                    "ArrayRecord input is a training path; test/eval drivers "
+                    "need per-sample file paths (prediction naming, gt lookup) "
+                    "— point them at a PNG-tree split file"
+                )
+            if self.use_right:
+                raise ValueError(
+                    "--use_right needs the PNG-tree loader: records bake one "
+                    "camera per sample (write both views into the shards instead)"
+                )
+            self.record_source = RecordSource(fn)
+            self.samples = []
+            self.n_base = len(self.record_source)
+        else:
+            self.samples = parse_filenames_file(fn, dp, gp)
+            self.n_base = len(self.samples)
+            # reference --use_right: the right camera is chosen per sample per
+            # epoch; left in [0, n), right in [n, 2n)
+            if self.use_right:
+                self.samples = self.samples + parse_filenames_file(fn, dp, gp, use_right=True)
         self.batch_size = cfg.batch_size
         if mode == "train" and self.n_base < self.batch_size:
             raise ValueError(
@@ -167,6 +181,8 @@ class BtsDataLoader:
         return max(1, self.n_base // self.batch_size)
 
     def _load_index(self, i: int):
+        if self.record_source is not None:
+            return self._load_record(i)
         need_depth = self.mode != "test"
         img, depth, focal = load_sample(
             self.samples[i],
@@ -176,6 +192,15 @@ class BtsDataLoader:
             border_crop=self.mode == "train",
         )
         if depth is None and need_depth:
+            depth = np.zeros(img.shape[:2], np.float32)
+        return img, depth, focal
+
+    def _load_record(self, index: int):
+        """Decode record ``index`` to the contract of :meth:`_load_index`."""
+        img, raw_depth, focal = self.record_source.read(index, use_native=self.cfg.use_native_loader != "never")
+        depth = depth_from_png(raw_depth, self.cfg.dataset) if raw_depth is not None else None
+        img, depth = apply_fixed_geometry(img, depth, self.cfg.dataset, self.cfg.do_kb_crop, border_crop=True)
+        if depth is None:
             depth = np.zeros(img.shape[:2], np.float32)
         return img, depth, focal
 
@@ -239,10 +264,100 @@ class BtsDataLoader:
             if pool is not None:
                 pool.shutdown(wait=False)
 
+    def _crop_mode(self) -> int:
+        if self.cfg.dataset == "nyu":
+            return nl.CROP_NYU if self.mode == "train" else nl.CROP_NONE
+        return nl.CROP_KB if self.cfg.do_kb_crop else nl.CROP_NONE
+
+    def _native(self, num_epochs: Optional[int], start_step: int = 0) -> Tuple[Optional[Iterator[dict]], str]:
+        """The C++ decode-and-prefetch stream (``csrc/btsdata.cc``) and the
+        line that names it; or None and the line that says which path is
+        taken instead, and why."""
+        choice = self.cfg.use_native_loader
+        if choice != "never" and not nl.available():
+            if choice == "always":
+                raise RuntimeError(f"--use_native_loader always, but {nl.unavailable_reason()}")
+            why = f"the native loader did not build: {nl.unavailable_reason()}"
+        else:
+            why = "--use_native_loader never" if choice == "never" else ""
+        if self.record_source is not None:  # records are decoded by _load_record
+            return None, f"ArrayRecord shards, {f'PIL decode ({why})' if why else 'native in-memory decode'}"
+        if why:
+            return None, f"PIL ({why})"
+        crop_mode = self._crop_mode()
+        if crop_mode == nl.CROP_NONE:
+            if self.cfg.dataset == "kitti":
+                # raw KITTI frames differ in size between drives: without the
+                # KB crop there is no one geometry to assemble a batch in
+                return None, "PIL (KITTI frames without --do_kb_crop differ in size)"
+            # one geometry across the split: sample 0's
+            w, h = Image.open(self.samples[0].image_path).size
+        else:
+            h, w = nl.crop_shape(crop_mode, 0, 0)
+        loader = nl.NativeBatchLoader(
+            [s.image_path for s in self.samples],
+            [s.depth_path for s in self.samples],
+            [s.focal for s in self.samples],
+            batch=self.local_batch,
+            height=h,
+            width=w,
+            crop_mode=crop_mode,
+            inv_scale=1.0 / (1000.0 if self.cfg.dataset == "nyu" else 256.0),
+            with_depth=self.mode != "test",
+            num_threads=max(self.cfg.dataloader_workers, self.cfg.num_threads),
+        )
+
+        def gen():
+            try:
+                spe = self.steps_per_epoch()
+                epoch = start_step // spe if self.mode == "train" else 0
+                skip = start_step % spe if self.mode == "train" else 0
+                done = 0
+                while num_epochs is None or done < num_epochs:
+                    order = np.asarray(self._epoch_order(epoch), np.int32)
+                    if self.mode == "train":
+                        usable = len(order) - (len(order) % self.batch_size)
+                        order = order[:usable].reshape(-1, self.batch_size)
+                        if self.rows is not None:
+                            order = order[:, self.rows]  # this rank's rows of each global batch
+                        # mid-epoch resume: drop the batches already consumed
+                        order = order[skip:].reshape(-1)
+                    elif len(order) % self.batch_size:
+                        # test mode pads the tail batch with its last sample
+                        pad = self.batch_size - len(order) % self.batch_size
+                        order = np.concatenate([order, np.repeat(order[-1:], pad)])
+                    loader.start_epoch(order)
+                    yield from loader
+                    skip = 0
+                    epoch += 1
+                    done += 1
+                    if self.mode != "train":
+                        break
+            finally:
+                loader.close()  # stops and joins the C++ workers
+
+        what = {nl.CROP_KB: "KB crop", nl.CROP_NYU: "NYU border crop", nl.CROP_NONE: f"{h}x{w}"}[crop_mode]
+        return gen(), f"native C++ loader ({what}, {loader.num_threads} threads)"
+
     def prefetched(
         self, num_epochs: Optional[int] = None, depth: int = 2, start_step: int = 0
     ) -> Iterator[dict]:
-        """Batches decoded by a background thread ahead of the consumer.
+        """Batches decoded ahead of the consumer: by the native C++ loader
+        when it is usable, else by PIL on a background thread.  Prints one
+        line naming the path taken (and why, for PIL).  ``start_step``
+        resumes the train-mode sequence sample-exactly on either path.
+        Closing the stream stops its threads."""
+        native, line = self._native(num_epochs, start_step)
+        if parallel.is_primary():
+            print(f"[bts_tpu_torch] input: {line}", flush=True)
+        if native is not None:
+            return native
+        return self._py_prefetched(num_epochs, depth, start_step)
+
+    def _py_prefetched(
+        self, num_epochs: Optional[int] = None, depth: int = 2, start_step: int = 0
+    ) -> Iterator[dict]:
+        """PIL decode (or records) on a background thread ahead of the consumer.
 
         Closing (or abandoning) this generator stops the worker and closes
         the underlying :meth:`batches` generator, so its decode pool shuts

@@ -1,1 +1,2 @@
-"""Measurement scripts of the port, run on a CUDA card (``python -m``)."""
+"""Scripts of the port (``python -m``): measurements on a CUDA card and the
+ArrayRecord converter."""

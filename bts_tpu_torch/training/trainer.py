@@ -28,6 +28,13 @@ after DDP's all-reduce every rank holds the same gradient, so ``grad_norm``
 is the global one.  ``state_dict`` and ``load_state_dict`` read and write
 the unwrapped model; under ZeRO-1 :meth:`Trainer.save` gathers the
 optimizer state on rank 0, which alone writes the checkpoint.
+
+``--debug_nans`` (the counterpart of ``jax_debug_nans``): a forward hook on
+every module raises ``FloatingPointError`` naming the module whose output
+first holds a NaN (:func:`install_nan_checks`), and the step runs in
+autograd's anomaly mode, which fails the backward at the first function
+that returns a NaN and prints the forward line that made it.  Nothing is
+installed without the flag.
 """
 
 from __future__ import annotations
@@ -53,6 +60,26 @@ def step_generator(seed: int, step: int, micro: Optional[int] = None) -> torch.G
     """The CPU generator of one step's (or microbatch's) augmentation draws."""
     key = [seed, step] if micro is None else [seed, step, micro]
     return torch.Generator().manual_seed(int(np.random.SeedSequence(key).generate_state(1)[0]))
+
+
+def install_nan_checks(model: torch.nn.Module) -> list:
+    """A forward hook on every module of ``model`` that raises
+    ``FloatingPointError`` when a floating output holds a NaN, naming the
+    module by its qualified name.  A module's hook runs after its
+    children's, so the innermost module that made the NaN is named, and the
+    forward stops there: under remat the recomputation in the backward never
+    sees a NaN that the forward did not raise on.  Each check waits for the
+    device.  Returns the hook handles."""
+
+    def hook(name):
+        def check(module, inputs, output):
+            outs = output if isinstance(output, (tuple, list)) else (output,)
+            for t in outs:
+                if isinstance(t, torch.Tensor) and t.is_floating_point() and bool(torch.isnan(t).any()):
+                    raise FloatingPointError(f"--debug_nans: NaN in the output of {name} ({type(module).__name__})")
+        return check
+
+    return [m.register_forward_hook(hook(name or "model")) for name, m in model.named_modules()]
 
 
 class Trainer:
@@ -83,6 +110,8 @@ class Trainer:
                 broadcast_buffers=False)
         self.optimizer, self.scheduler = make_optimizer(model, cfg, total_steps)
         self.params = [p for p in model.parameters() if p.requires_grad]
+        if cfg.debug_nans:
+            install_nan_checks(model)
 
     def _loss(self, images, depths, focal, gen: torch.Generator):
         cfg = self.cfg
@@ -122,7 +151,11 @@ class Trainer:
             sl = slice(i * mb, (i + 1) * mb)
             gen = step_generator(self.cfg.seed, self.step, None if accum == 1 else i)
             last = i == accum - 1
-            with self.ddp.no_sync() if self.ddp is not None and not last else contextlib.nullcontext():
+            with contextlib.ExitStack() as scope:
+                if self.ddp is not None and not last:
+                    scope.enter_context(self.ddp.no_sync())
+                if self.cfg.debug_nans:
+                    scope.enter_context(torch.autograd.set_detect_anomaly(True))
                 loss, final = self._loss(images[sl], depths[sl], focal[sl], gen)
                 (loss / accum).backward()
             loss_sum = loss_sum + loss.detach()

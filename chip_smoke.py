@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (the literal and the fused decoder
 tail), its training paths (config 4 and config 3, config 4 also under
-torch.distributed), the other encoders, the evaluation entry points, the
-serving entry points (convert, export, HTTP, sequence) and its public LPG op
-once on one NVIDIA GPU and check them.
+torch.distributed and fed from each input loader), the other encoders, the
+evaluation entry points, the serving entry points (convert, export, HTTP,
+sequence) and its public LPG op once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repo root; one CUDA card, nvcc
 
@@ -170,9 +170,35 @@ Phases, one JSON line each, then the result:
                 2): 3 K1 per batch forward, each PNG within 1 unit of
                 bts_test's for the same frame, through the kernels and
                 through --use_pallas never; frames/s.
-16. result    - {"kernels": [...]}: all six kernels, launches by main path
+16. input     - the input plane at config-4 width.  A leg this machine
+                cannot run (the native library does not build: no libpng/
+                libjpeg headers; no array_record package) is named on its
+                own line with the reason, first.  (a) 16 synthetic KITTI
+                375x1242 frames (b16, KB crop) and 8 NYU 480x640 (b4, border
+                crop): BtsDataLoader with --use_native_loader always against
+                never over one epoch and from a resume at step 3 (images,
+                focals, KITTI depths bit for bit, NYU depths within one
+                ulp); without the library, always must raise; host ms per
+                batch of each path (median, q1, q3), workers and threads
+                from the arguments file.  (b) make_records shards of the 16
+                frames through BtsDataLoader against the PNG tree, bit for
+                bit; records/s.  (c) bts_main
+                (@arguments/arguments_train_eigen.txt, bf16, remat layer) for
+                12 steps from the PNG tree with never, with always and from
+                the records, and (the control) the same batches decoded
+                before the run and fed from memory: the same first loss,
+                finite losses, 3 K1 + 3 K2 per step (and 3 K1 for the
+                step-1 summary), ms per step (median, q1, q3 after 2),
+                images/s, peak memory, beside the train phase's.  (d)
+                bts_main --debug_nans for 2 steps (the first loss of (c)'s
+                never run; ms per step beside it), again with the hooks
+                alone (anomaly mode left off), and
+                one step in a subprocess with a NaN in the weight of
+                encoder.features.denseblock2.denselayer1.conv1: exits non-zero
+                with FloatingPointError naming it.
+17. result    - {"kernels": [...]}: all six kernels, launches by main path
                 (serve, serve_tail, train, train_ddp, op, encoders,
-                train_nyu, eval, export, serve_http, sequence; each path's
+                train_nyu, eval, export, serve_http, sequence, input; each path's
                 counts set to 0 just before it runs), and ms,
                 plain_ms, bound_ms per the unit
                 named in "per" (K1, K2: a training step's three heads, bf16
@@ -187,6 +213,7 @@ Nothing falls back to the CPU or to the plain version.  It imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import re
@@ -2149,6 +2176,251 @@ def phase_serving(card: str) -> dict:
     return launches
 
 
+INPUT_STEPS, INPUT_NYU_FRAMES, INPUT_NYU_B = 12, 8, 4  # the input phase: bts_main steps, NYU parity frames, batch
+INPUT_LOADER_EPOCHS = 9  # the input phase's loader timing: batches of each path (the first carries the start)
+NAN_MODULE = "encoder.features.denseblock2.denselayer1.conv1"  # (d): the conv whose weight holds the NaN
+
+
+def _input_argv(split: str, choice: str, runs: Path, name: str, steps: int, data: str = "") -> list:
+    """bts_main with the config-4 recipe (@arguments/arguments_train_eigen.txt:
+    DenseNet-161, b16, KB crop, 352x704, rotation <= 1 degree) on the card,
+    bf16, remat 'layer', ``steps`` steps over a 16-frame split."""
+    return ["@arguments/arguments_train_eigen.txt", "--device", "cuda", "--input_height", str(TRAIN_H),
+            "--input_width", str(TRAIN_W), "--remat", "--remat_policy", "layer", "--compute_dtype", "bfloat16",
+            "--num_epochs", str(steps), "--data_path", data, "--gt_path", data, "--filenames_file", split,
+            "--use_native_loader", choice, "--log_directory", str(runs), "--model_name", name, "--save_freq", "1000"]
+
+
+def _bts_main_run(argv: list) -> dict:
+    """bts_main in this process; each step timed on the host clock around
+    the step and a synchronize, with its loss; K1/K2 launches counted from 0."""
+    from bts_tpu_torch.cli import bts_main
+    from bts_tpu_torch.ops.lpg_cuda import lpg_fused, lpg_fused_bwd
+    from bts_tpu_torch.training.trainer import Trainer
+
+    times, losses = [], []
+    train_step = Trainer.train_step
+
+    def timed(self, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = train_step(self, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(out["loss"]))
+        return out
+
+    Trainer.train_step = timed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
+    t0 = time.perf_counter()
+    try:
+        check(bts_main.main(argv) == 0, f"bts_main {argv}")
+    finally:
+        Trainer.train_step = train_step
+    return {"seconds": time.perf_counter() - t0, "losses": losses, "times": times,
+            "launches": {"lpg_fused": lpg_fused.launches, "lpg_fused_bwd": lpg_fused_bwd.launches},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _loader_ms(cfg, epochs: int) -> dict:
+    """Host ms between batches of ``prefetched`` drained as fast as it
+    delivers (no consumer work), after the first batch."""
+    from bts_tpu_torch.data.dataloader import BtsDataLoader
+
+    times = []
+    t = time.perf_counter()
+    for _ in BtsDataLoader(cfg, "train").prefetched(num_epochs=epochs):
+        now = time.perf_counter()
+        times.append((now - t) * 1e3)
+        t = now
+    return _quartiles(times[1:])
+
+
+def _same_batches(a: list, b: list, nyu: bool = False) -> dict:
+    """Images, focals and KITTI depths bit for bit; NYU depths (native
+    against PIL) within one ulp: the native loader multiplies the counts by
+    float32(1/1000), PIL's path divides them by 1000."""
+    check(len(a) == len(b) and len(a) > 0, f"{len(a)} batches against {len(b)}")
+    ulps = 0
+    for x, y in zip(a, b):
+        check(x.keys() == y.keys(), f"keys {sorted(x)} {sorted(y)}")
+        for k in x:
+            if k == "depth" and nyu:
+                ulps = max(ulps, int(np.abs(x[k].view(np.int32).astype(np.int64) - y[k].view(np.int32)).max()))
+            else:
+                check(np.array_equal(x[k], y[k]), f"{k} differs")
+    check(ulps <= 1, f"NYU depths {ulps} ulps apart")
+    return {"batches": len(a), "depth_max_ulps": ulps}
+
+
+def phase_input(card: str, train_rec: dict) -> dict:
+    """The input plane at config-4 width: (a) the native C++ loader against
+    PIL, (b) ArrayRecord shards, (c) bts_main fed from each, (d)
+    --debug_nans.  A leg this machine cannot run (no libpng/libjpeg to
+    build the native library, no array_record) is named on its own line,
+    with the reason, before the rest runs.  Returns the K1/K2 launches of
+    the bts_main runs."""
+    import tempfile
+
+    from bts_tpu_torch.config import parse_args
+    from bts_tpu_torch.data import native_loader as nl
+    from bts_tpu_torch.data.dataloader import BtsDataLoader
+    from bts_tpu_torch.models.bts import create_model
+
+    rec = {"phase": "input", "card": card,
+           "config": "config 4 (bts_main @arguments/arguments_train_eigen.txt, bf16, remat layer) on 16 synthetic "
+                     f"KITTI {KITTI_FULL[0]}x{KITTI_FULL[1]} frames; NYU parity on {INPUT_NYU_FRAMES} "
+                     f"{NYU_H}x{NYU_W} frames at b{INPUT_NYU_B}"}
+    native = nl.available()
+    try:
+        import array_record  # noqa: F401
+
+        records_missing = ""
+    except ImportError as e:
+        records_missing = str(e)
+    if not native:
+        # the compiler's first error line says which header or library is missing
+        why = next((ln.strip() for ln in nl.unavailable_reason().splitlines() if "error" in ln),
+                   nl.unavailable_reason()[:300])
+        emit({"phase": "input", "leg_not_run": "(a) the native side of the loader parity and its timing; "
+              "(c) bts_main with --use_native_loader always",
+              "reason": f"the native loader (csrc/btsdata.cc) does not build on this machine: {why}"})
+    if records_missing:
+        emit({"phase": "input", "leg_not_run": "(b) ArrayRecord shards; (c) bts_main from records",
+              "reason": f"the array_record package is not installed: {records_missing}"})
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        split = str(_png_tree(tmp / "kitti", DDP_FRAMES, KITTI_FULL, "kitti", seed=12))
+        nyu_split = str(_png_tree(tmp / "nyu", INPUT_NYU_FRAMES, (NYU_H, NYU_W), "nyu", seed=13))
+        data = str(tmp / "kitti")
+
+        def cfg(choice, fn=split, dataset="kitti"):
+            c = parse_args(_input_argv(fn, choice, tmp / "runs", "loader", 1, data), mode="train")
+            if dataset == "nyu":  # the NYU layout: border crop, b4, max depth 10 m
+                c = c.replace(dataset="nyu", do_kb_crop=False, batch_size=INPUT_NYU_B, max_depth=NYU_MAX_DEPTH,
+                              data_path=str(tmp / "nyu"), gt_path=str(tmp / "nyu"))
+            return c
+
+        # (a) loader parity: one epoch, and a resume at step 3; then host ms per batch
+        loader = {"dataloader_workers": cfg("never").dataloader_workers, "num_threads": cfg("never").num_threads}
+        if native:
+            for name, dataset, fn in (("kitti", "kitti", split), ("nyu", "nyu", nyu_split)):
+                for start in (0, 3):
+                    got = {c: list(BtsDataLoader(cfg(c, fn, dataset), "train").prefetched(num_epochs=1,
+                                                                                          start_step=start))
+                           for c in ("always", "never")}
+                    loader[f"{name}_parity_start_{start}"] = _same_batches(got["always"], got["never"],
+                                                                           nyu=dataset == "nyu")
+        else:
+            with_always = cfg("always")
+            try:
+                BtsDataLoader(with_always, "train").prefetched()
+            except RuntimeError as e:
+                loader["always_raises"] = str(e).splitlines()[0]
+            check("always_raises" in loader, "--use_native_loader always did not raise without the library")
+        for c in ("always", "never") if native else ("never",):
+            loader[f"kitti_b16_host_ms_per_batch_{c}"] = _loader_ms(cfg(c), INPUT_LOADER_EPOCHS)
+            loader[f"nyu_b{INPUT_NYU_B}_host_ms_per_batch_{c}"] = _loader_ms(cfg(c, nyu_split, "nyu"),
+                                                                         INPUT_LOADER_EPOCHS)
+        rec["loader"] = loader
+        emit({"phase": "input_loader", **loader})
+
+        # (b) records: shards of the same 16 frames, read through the loader
+        runs = [("png_never", split, "never")] + ([("png_always", split, "always")] if native else [])
+        if not records_missing:
+            from bts_tpu_torch.tools import make_records
+
+            check(make_records.main(["--filenames_file", split, "--data_path", data, "--gt_path", data,
+                                     "--out", str(tmp / "rec" / "train"), "--shard_size", "8"]) == 0, "make_records")
+            shards = str(tmp / "rec" / "train-*.array_record")
+            recs = {}
+            for start in (0, 3):
+                tree = list(BtsDataLoader(cfg("never"), "train").prefetched(num_epochs=1, start_step=start))
+                got = list(BtsDataLoader(cfg("auto", shards), "train").prefetched(num_epochs=1, start_step=start))
+                recs[f"parity_start_{start}"] = _same_batches(got, tree)
+            epochs = 4
+            t = time.perf_counter()
+            n = sum(len(b["image"]) for b in BtsDataLoader(cfg("auto", shards), "train").prefetched(num_epochs=epochs))
+            recs["records_per_s"] = n / (time.perf_counter() - t)
+            recs["records"] = n
+            rec["records"] = recs
+            runs.append(("records", shards, "auto"))
+
+        # (c) bts_main for INPUT_STEPS steps, fed from each input
+        train = {}
+
+        def record(name, choice, r):
+            timing = _quartiles(r["times"][WARMUP_STEPS:])
+            train[name] = {"use_native_loader": choice, "first_loss": r["losses"][0], "losses": r["losses"],
+                           "ms_per_step": timing, "images_per_s": TRAIN_B * 1e3 / timing["median"],
+                           "peak_mem_gib": r["peak_mem_gib"], "launches": r["launches"], "seconds": r["seconds"],
+                           "first_two_step_ms": r["times"][:2]}
+            emit({"phase": "input_train", "run": name, **train[name]})
+            check(len(r["losses"]) == INPUT_STEPS and all(np.isfinite(r["losses"])), f"{name}: {r['losses']}")
+            # 3 K1 + 3 K2 per step, and 3 K1 for the step-1 summary forward
+            check(r["launches"] == {"lpg_fused": 3 * INPUT_STEPS + 3, "lpg_fused_bwd": 3 * INPUT_STEPS},
+                  f"{name}: {r['launches']} in {INPUT_STEPS} steps")
+
+        for name, fn, choice in runs:
+            record(name, choice, _bts_main_run(_input_argv(fn, choice, tmp / "runs", name, INPUT_STEPS, data)))
+        # the control: the same batches, decoded before the run and fed from
+        # memory (no loader thread), so bts_main's cost apart from its input
+        pre = list(BtsDataLoader(cfg("never"), "train").batches(num_epochs=INPUT_STEPS))
+        prefetched = BtsDataLoader.prefetched
+        BtsDataLoader.prefetched = lambda self, num_epochs=None, depth=2, start_step=0: (b for b in pre[start_step:])
+        try:
+            record("memory", "none: decoded before the run",
+                   _bts_main_run(_input_argv(split, "never", tmp / "runs", "memory", INPUT_STEPS, data)))
+        finally:
+            BtsDataLoader.prefetched = prefetched
+        del pre
+        first = {name: t["first_loss"] for name, t in train.items()}
+        check(len(set(first.values())) == 1, f"first losses differ: {first}")
+        rec["train"] = train
+        rec["train_phase_same_call"] = {k: train_rec[k] for k in ("ms_per_step", "images_per_s", "peak_mem_gib")}
+
+        # (d) --debug_nans: two clean steps against the same two steps without
+        # the flag, then a NaN planted in one conv weight, in a subprocess
+        r = _bts_main_run(_input_argv(split, "never", tmp / "runs", "debug_nans", 2, data) + ["--debug_nans"])
+        ref = train["png_never"]
+        dn = {"ms_first_two_steps": r["times"], "ms_first_two_steps_without": ref["first_two_step_ms"],
+              "losses": r["losses"], "losses_without": ref["losses"][:2], "launches": r["launches"]}
+        check(r["losses"][0] == ref["first_loss"] and np.isfinite(r["losses"]).all(), f"--debug_nans: {dn}")
+        # the hooks alone, autograd's anomaly mode left off: which of the two costs
+        detect = torch.autograd.set_detect_anomaly
+        torch.autograd.set_detect_anomaly = lambda mode, check_nan=True: contextlib.nullcontext()
+        try:
+            h = _bts_main_run(_input_argv(split, "never", tmp / "runs", "hooks", 2, data) + ["--debug_nans"])
+        finally:
+            torch.autograd.set_detect_anomaly = detect
+        dn.update(ms_first_two_steps_hooks_only=h["times"], losses_hooks_only=h["losses"])
+        check(h["losses"][0] == ref["first_loss"], f"--debug_nans, hooks only: {dn}")
+        sd = create_model(train_config(device="cpu"), "cpu").encoder.state_dict()
+        sd[NAN_MODULE.removeprefix("encoder.") + ".weight"][0, 0, 0, 0] = float("nan")
+        torch.save(sd, tmp / "encoder_nan.pt")
+        argv = _input_argv(split, "never", tmp / "runs", "nan", 1, data) + [
+            "--debug_nans", "--pretrained_model", str(tmp / "encoder_nan.pt")]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "bts_tpu_torch.cli.bts_main", *argv], capture_output=True,
+                              text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+        raised = [ln for ln in proc.stderr.splitlines() if ln.startswith("FloatingPointError")]
+        dn["nan_subprocess"] = {"exit": proc.returncode, "raised": raised, "seconds": time.perf_counter() - t0}
+        rec["debug_nans"] = dn
+        emit({"phase": "input_debug_nans", **dn})
+        check(proc.returncode != 0 and raised == [f"FloatingPointError: --debug_nans: NaN in the output of "
+                                                  f"{NAN_MODULE} (Conv2d)"],
+              f"--debug_nans with a NaN in {NAN_MODULE}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    emit(rec)
+    launches = {k: sum(t["launches"][k] for t in train.values()) + dn["launches"][k] + h["launches"][k]
+                for k in ("lpg_fused", "lpg_fused_bwd")}
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2195,8 +2467,9 @@ def main() -> int:
     eval_launches = phase_eval(card, kitti_model)
     del kitti_model
     serving = phase_serving(card)
+    input_launches = phase_input(card, train_rec)
     paths = ("serve", "serve_tail", "train", "train_ddp", "op", "encoders", "train_nyu", "eval", "export",
-             "serve_http", "sequence")
+             "serve_http", "sequence", "input")
     by_path = {name: dict.fromkeys(paths, 0) for name, _, _, _ in KERNELS}
     by_path["lpg_fused"].update(serve=serve_launches, serve_tail=tail_launches["lpg_fused"],
                                 train=train_launches["lpg_fused"], train_ddp=ddp_launches["lpg_fused"],
@@ -2205,6 +2478,8 @@ def main() -> int:
     by_path["lpg_fused_bwd"].update(train=train_launches["lpg_fused_bwd"],
                                     train_ddp=ddp_launches["lpg_fused_bwd"],
                                     train_nyu=nyu_launches["lpg_fused_bwd"], eval=eval_launches["lpg_fused_bwd"])
+    for name, n in input_launches.items():
+        by_path[name]["input"] = n
     by_path["lpg_plane"]["op"] = op_launches["lpg_plane"]
     by_path["lpg_plane_bwd"]["op"] = op_launches["lpg_plane_bwd"]
     by_path["lpg_phase_planes"]["serve_tail"] = tail_launches["lpg_phase_planes"]

@@ -3,7 +3,8 @@ backward K2, the public LPG op's forward K3 and backward K4, the phase-plane
 head K5 (csrc/lpg_fused.cu) and the fused decoder tail K6
 (csrc/fused_tail.cu), each against its plain version; K1, K2, K5 and K6
 through their torch.library ops against their CUDA implementations called
-directly, and through an exported serving program.
+directly, and through an exported serving program; bts_main on the card
+fed by the native C++ loader against PIL, and --debug_nans.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: a CUDA
 kernel has no CPU mode.  On a machine with a card (and ``nvcc``):
@@ -489,3 +490,67 @@ def test_batchnorm_global_moments_on_cuda_under_gloo(card, tmp_path):
     for k, w in want.items():
         w = w.cpu()
         torch.testing.assert_close(got[k], w, rtol=1e-5, atol=1e-6 * w.abs().max().item(), msg=k)
+
+
+def _kitti_tree(root, n: int, hw, seed: int):
+    """``n`` seeded KITTI frames and sparse depth PNGs (meters x 256) and
+    their split file."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    lines = []
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (*hw, 3), dtype=np.uint8)).save(root / f"rgb{i}.png")
+        depth = rng.uniform(1.0, 80.0, hw) * (rng.random(hw) < 0.05)
+        Image.fromarray((depth * 256).astype(np.uint16)).save(root / f"gt{i}.png")
+        lines.append(f"rgb{i}.png gt{i}.png 721.5377")
+    (root / "split.txt").write_text("\n".join(lines) + "\n")
+    return ["--data_path", str(root), "--gt_path", str(root), "--filenames_file", str(root / "split.txt")]
+
+
+def _tiny_main_argv(tmp_path, name, *extra):
+    return ["--device", "cuda", "--encoder", "mobilenetv2_bts", "--bts_size", "64", "--dataset", "kitti",
+            "--compute_dtype", "float32", "--batch_size", "2", "--num_epochs", "1", "--log_freq", "1",
+            "--save_freq", "100", "--log_directory", str(tmp_path / "runs"), "--model_name", name, *extra]
+
+
+def test_bts_main_native_loader_equals_pil_on_the_card(card, tmp_path, capsys):
+    """bts_main for 2 steps on the card (KB crop, 352x704, the config-4
+    heads): --use_native_loader always gives the first loss of never (the
+    same batches, weights and draws)."""
+    from bts_tpu_torch.cli import bts_main
+    from bts_tpu_torch.data import native_loader as nl
+
+    if not nl.available():
+        pytest.skip(f"the native loader does not build on this machine: {nl.unavailable_reason()[:300]}")
+    data = _kitti_tree(tmp_path / "kitti", 4, (375, 1242), seed=4)
+    first = {}
+    for choice in ("always", "never"):
+        argv = _tiny_main_argv(tmp_path, choice, "--do_kb_crop", "--input_height", "352", "--input_width", "704",
+                               "--use_native_loader", choice, *data)
+        assert bts_main.main(argv) == 0
+        out = capsys.readouterr().out
+        assert ("input: native C++ loader" in out) == (choice == "always")
+        first[choice] = next(ln for ln in out.splitlines() if ln.startswith("step 1/2 loss")).split()[3]
+    assert first["always"] == first["never"]
+
+
+def test_debug_nans_names_the_module_on_the_card(card, tmp_path, capsys):
+    """--debug_nans with remat on the card: a clean step trains; a NaN in
+    one conv weight raises FloatingPointError naming that conv."""
+    from bts_tpu_torch.cli import bts_main
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import create_model
+
+    data = _kitti_tree(tmp_path / "kitti", 2, (80, 112), seed=5)
+    argv = _tiny_main_argv(tmp_path, "clean", "--input_height", "64", "--input_width", "96", "--remat",
+                           "--debug_nans", "--use_native_loader", "never", *data)
+    assert bts_main.main(argv) == 0
+    assert "done at step 1" in capsys.readouterr().out
+    sd = create_model(Config(encoder="mobilenetv2_bts", bts_size=64), "cpu").encoder.state_dict()
+    sd["features.3.conv.1.0.weight"][0, 0, 0, 0] = float("nan")
+    torch.save(sd, tmp_path / "encoder.pt")
+    argv[argv.index("clean")] = "nan"
+    with pytest.raises(FloatingPointError, match=r"NaN in the output of encoder\.features\.3\.conv\.1\.0 "):
+        bts_main.main(argv + ["--pretrained_model", str(tmp_path / "encoder.pt")])

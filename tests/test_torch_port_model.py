@@ -304,6 +304,7 @@ PORT_MODULES = (
     "bts_tpu_torch.models.encoders.resnet", "bts_tpu_torch.models.encoders.mobilenetv2",
     "bts_tpu_torch.utils.serving", "bts_tpu_torch.cli.bts_export", "bts_tpu_torch.cli.bts_convert",
     "bts_tpu_torch.parallel", "bts_tpu_torch.parallel.distributed",
+    "bts_tpu_torch.data.records", "bts_tpu_torch.data.native_loader", "bts_tpu_torch.tools.make_records",
 )
 NEEDS_PIL = ("bts_tpu_torch.data.crops", "bts_tpu_torch.data.depth_io",
              "bts_tpu_torch.data.dataloader", "bts_tpu_torch.cli.bts_main", "bts_tpu_torch.cli.bts_eval",
@@ -313,12 +314,13 @@ NEEDS_PIL = ("bts_tpu_torch.data.crops", "bts_tpu_torch.data.depth_io",
 def test_port_imports_no_jax_and_no_pil():
     """Every module of the port and chip_smoke.py, imported in a fresh
     process: none pulls in JAX, its libraries, or any module of the JAX
-    package ``bts_tpu``; the serving and training modules before the loader
-    do not pull in Pillow either."""
+    package ``bts_tpu``; the serving and training modules before the loader,
+    the records module and the native loader's binding do not pull in Pillow
+    or ``array_record`` either."""
     code = (
         "import importlib, sys\n"
         f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-        "assert 'PIL' not in sys.modules\n"
+        "assert 'PIL' not in sys.modules and 'array_record' not in sys.modules\n"
         f"for m in {NEEDS_PIL!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'bts_tpu')]\n"
