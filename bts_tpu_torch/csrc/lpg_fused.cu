@@ -35,14 +35,35 @@
 // keeps the card full.  raw is read in its own dtype (f32 or bf16,
 // converted in registers: exact) through its strides.  Where a row's pitch
 // is not a multiple of 4 floats (k = 2, odd w), odd rows are not 16-byte
-// aligned and the lane stores two float2 instead.  Every per-pixel
-// operation (spherical_cell, patch_offset, lpg_value) is the first
-// design's, in the same order, so the output is bit for bit the same.
+// aligned and the lane stores two float2 instead (store_cols).  Every
+// per-pixel operation (spherical_cell, patch_offset, lpg_value) is the
+// first design's, in the same order, so the output is bit for bit the same.
+//
+// Small grids (fwd_launch): a b1 serving head gives 440 (k = 8) to 1,760
+// (k = 2) work items, 3.3 to 13 warps per SM of the H100's 132, and each
+// warp runs its k rows of 4 divisions per lane back to back with too few
+// warps beside it to hide their latency.  Each head writes ~1.7 MB, so
+// bandwidth per SM is not the limit; the launch ramp and the number of
+// warps at work are (TMA, wgmma and clusters would not help here).  At
+// k = 8, where the grid holds fewer than kSplitBelow warps per SM, the cell
+// row's 8 output rows are split among kSplitRows = 4 warps, each re-reading
+// its cells' inputs (12 or 16 bytes per cell, from L2) and storing 2 rows,
+// in blocks of kSplitWarps warps so the blocks spread evenly.  Only k = 8
+// splits: the b1 k = 4 head measured the same split in two (0.00375 ms
+// against 0.00374 unsplit, tools/phase_ab.py) and k = 2 already has 13
+// warps per SM.  Every config-4 (b16) and config-3 (b4) head keeps one warp
+// per cell row and 8 warps per block, as before.  K1 at the b1 k = 8 head:
+// 0.00394 ms, against 0.00462 without the split, 0.00404 with 2 warps per
+// cell row and 0.00435 with 8 (each warp still transforms its cells, so
+// more warps add work); K3 0.00327, 0.00393, 0.00337 and 0.00357
+// (bts_tpu_torch/tools/lpg_launch_shapes.py on an H100, PERF.md).  The SM
+// count is read once per device (cudaDevAttrMultiProcessorCount).
 //
 // K3 replaces lpg_pallas.py::_fwd_kernel (launched by _fwd_call, reached
-// through lpg, the public local_planar_guidance op): the same kernel on a
-// plane (B, h, w, 4) = (n1, n2, n3, n4) read as it is, without the
-// spherical transform (lpg_fwd_kernel<false, K, In>).
+// through lpg, the public local_planar_guidance op): the same kernel and
+// launch on a plane (B, h, w, 4) = (n1, n2, n3, n4) read as it is, without
+// the spherical transform (lpg_fwd_kernel<false, K, R, W, In>).  It runs at
+// b1 serving heads, so it is the split launch's main user.
 //
 // K5 replaces bts_tpu/ops/tail_pallas.py::_phase_lpg_kernel (launched by
 // _phase_lpg_call, reached through lpg_phase_planes on the fused decoder
@@ -50,10 +71,30 @@
 // q = 2*py + pz holding full-resolution pixel (2U+py, 2V+pz).  Its in-patch
 // indices are 2*(U % (k/2)) + py and 2*(V % (k/2)) + pz, exact small
 // integers, so u, v and every later operation are K1's: interleaving the
-// planes gives K1's output bit for bit.  One block covers 256 consecutive
-// phase columns V of one phase row U for all four planes; each store of a
-// warp is 128 contiguous bytes of one plane (K1's first launch shape).
-// Bound as K1: the same bytes.
+// planes gives K1's output bit for bit.  Bound as K1: the same bytes.  Its
+// first design (one 256-thread block per 256 phase columns of one phase
+// row; 256/(k/2) threads transforming while the rest waited on a
+// __syncthreads(); one scalar store per thread and plane) reached 15% of
+// that bound at the serving heads.  Design: no shared memory, no barrier.
+// A lane owns the k/2 phase columns of one cell, transforms that cell
+// itself, in registers, and stores its columns in each of the four planes
+// as one float4 (k = 8), float2 (k = 4) or float (k = 2) - a warp's store
+// is 128 to 512 contiguous bytes of one plane; float2 or scalars where the
+// pitch w*k/2 does not allow the vector.  A warp's work item is (b, phase
+// row U, 32 cells), in blocks of kK5Warps = 4: 880, 1,760 and 3,344 warps
+// at the b1 serving heads.  At these sizes the time goes to each warp's
+// serial chain (the raw load, the transform's expf, sinf, cosf and
+// divisions, then its stores), not to bandwidth, so each lane transforms
+// one cell and the warps are many.  Measured and left out (PERF.md):
+// lanes on 4 phase columns (1 to 4 cells each) took 0.0137 ms per b1
+// forward against 0.0116; lanes on 2 cells 0.0124; a cell row per warp
+// (all k/2 phase rows, each cell transformed once) 0.0131, though 5%
+// faster at the b4 export heads.  raw is read in its dtype (f32 or bf16)
+// through its strides, as K1 reads it, so a bf16 decoder needs no cast
+// before K5.
+//
+// Launch floor: lpg_empty_launch runs an empty kernel on a forward's grid
+// and block, so its device time is the least a launch of that shape costs.
 //
 // Rounding: products and sums use the _rn intrinsics in the order of the
 // plain PyTorch version (lpg_cuda.py::lpg_fused_plain), so that no multiply-add
@@ -100,8 +141,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // K5: output pixels per block; a multiple of every k
-constexpr int kWarps = 8;      // K1-K4: warps per block, each on its own work item
+constexpr int kWarps = 8;       // K1-K4: warps per block, each on its own work item
+constexpr int kSplitBelow = 7;  // K1, K3 at k = 8: split rows where the grid has fewer warps per SM
+constexpr int kSplitRows = 4;   // K1, K3 at k = 8: warps per cell row of a split launch
+constexpr int kSplitWarps = 4;  // K1, K3: warps per block of a split launch
+constexpr int kK5Warps = 4;     // K5: warps per block
 constexpr float kPiOver3 = 1.04719755119659774615f;  // float(pi / 3)
 constexpr float kTwoPi = 6.28318530717958647693f;    // float(2 * pi)
 
@@ -149,20 +193,52 @@ __device__ __forceinline__ float4 cell_at(const In* p, int64_t sc) {
   }
 }
 
+// The C floats of val at o, columns x0 .. x0+C-1 of a row of W floats (x0 a
+// multiple of C): one float4 (C = 4) or float2 (C = 2) where W is a
+// multiple of C (rows aligned, groups whole), else float2 (W even) or
+// scalars, none past the row's end.
+template <int C>
+__device__ __forceinline__ void store_cols(float* o, const float (&val)[C], int x0, int W) {
+  if constexpr (C == 4) {
+    if (W % 4 == 0) {
+      *reinterpret_cast<float4*>(o) = make_float4(val[0], val[1], val[2], val[3]);
+      return;
+    }
+  }
+  if constexpr (C >= 2) {
+    if (W % 2 == 0) {
+#pragma unroll
+      for (int j = 0; j < C; j += 2) {
+        if (j == 0 || x0 + j < W) *reinterpret_cast<float2*>(o + j) = make_float2(val[j], val[j + 1]);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    if (j == 0 || x0 + j < W) o[j] = val[j];
+  }
+}
+
 // K1 (kRaw: in = raw (B, h, w, 3), spherical transform) and K3 (in = plane
 // (B, h, w, 4)), read in its dtype In through element strides (sb, sh, sw,
 // sc), so a permuted NCHW tensor needs no copy.  out: (B, h*k, w*k) f32,
 // contiguous, 16-byte aligned.  One warp per work item (cell row b*h + cy,
-// 32 groups of 4 output columns): items = B * h * ceil(w*k / 128).
-template <bool kRaw, int K, typename In>
-__global__ void __launch_bounds__(kWarps * 32)
+// 32 groups of 4 output columns, the item's part of the k rows: rows
+// [part*K/R, (part+1)*K/R)), kW warps per block:
+// items = B * h * ceil(w*k / 128) * R.
+template <bool kRaw, int K, int R, int kW, typename In>
+__global__ void __launch_bounds__(kW * 32)
 lpg_fwd_kernel(const In* __restrict__ in, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
                float* __restrict__ out, int h, int w, int items) {
-  const int item = blockIdx.x * kWarps + threadIdx.x / 32;
+  constexpr int kRows = K / R;  // output rows per item
+  const int item = blockIdx.x * kW + threadIdx.x / 32;
   const int W = w * K;
   const int chunks = (W + 127) / 128;
-  const int row = item / chunks;  // b * h + cy
-  const int x0 = ((item - row * chunks) * 32 + threadIdx.x % 32) * 4;  // the lane's first column
+  const int group = item / R;             // (cell row, chunk); its R items are neighbours
+  const int part = item - group * R;
+  const int row = group / chunks;  // b * h + cy
+  const int x0 = ((group - row * chunks) * 32 + threadIdx.x % 32) * 4;  // the lane's first column
   if (item >= items || x0 >= W) return;
   const int b = row / h, cy = row - b * h, cx = x0 / K;
   const In* p = in + b * sb + (int64_t)cy * sh + (int64_t)cx * sw;
@@ -173,55 +249,57 @@ lpg_fwd_kernel(const In* __restrict__ in, int64_t sb, int64_t sh, int64_t sw, in
 #pragma unroll
   for (int j = 0; j < 4; ++j) u[j] = patch_offset((x0 + j) % K, K);
 
-  float* o = out + (int64_t)row * K * W + x0;
-  const bool vec = K > 2 || W % 4 == 0;  // rows 16-byte aligned; whole groups
+  float* o = out + ((int64_t)row * K + part * kRows) * W + x0;
 #pragma unroll
-  for (int r = 0; r < K; ++r, o += W) {
-    const float v = patch_offset(r, K);
-    const float4 val = make_float4(lpg_value(c0, u[0], v), lpg_value(c0, u[1], v),
-                                   lpg_value(c1, u[2], v), lpg_value(c1, u[3], v));
-    if (vec) {
-      *reinterpret_cast<float4*>(o) = val;
-    } else {  // k = 2, odd w: 8-byte aligned; the last group of a row is half
-      *reinterpret_cast<float2*>(o) = make_float2(val.x, val.y);
-      if (x0 + 2 < W) *reinterpret_cast<float2*>(o + 2) = make_float2(val.z, val.w);
-    }
+  for (int i = 0; i < kRows; ++i, o += W) {
+    const float v = patch_offset(part * kRows + i, K);
+    const float val[4] = {lpg_value(c0, u[0], v), lpg_value(c0, u[1], v), lpg_value(c1, u[2], v),
+                          lpg_value(c1, u[3], v)};
+    store_cols<4>(o, val, x0, W);
   }
 }
 
-// K5: raw (B, h, w, 3) f32 through element strides; out (B, 4, h*k/2, w*k/2)
-// f32, contiguous.  Block: phase columns [v0, v0 + 256) of phase row U.
-__global__ void __launch_bounds__(kThreads)
-lpg_phase_kernel(const float* __restrict__ raw, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
-                 float* __restrict__ out, int h, int w, int k) {
-  __shared__ float4 cell[kThreads];  // k/2 >= 1 phase columns per cell
-  const int kk = k / 2;
-  const int Hh = h * kk, Wh = w * kk;
-  const int U = blockIdx.y;
-  const int b = blockIdx.z;
-  const int v0 = blockIdx.x * kThreads;  // a multiple of kk
-  const int c0 = v0 / kk;
-  const int t = threadIdx.x;
-
-  if (t < kThreads / kk && c0 + t < w) {
-    cell[t] = spherical_cell(raw + b * sb + (int64_t)(U / kk) * sh + (int64_t)(c0 + t) * sw, sc);
+// K5: raw (B, h, w, 3) in its dtype In through element strides; out
+// (B, 4, Hh, Wh) f32, contiguous, Hh = h*KK, Wh = w*KK, KK = k/2.  A lane
+// owns one cell's KK consecutive phase columns; one warp per work item (b,
+// phase row U, 32 cells), kK5Warps per block: items = B * Hh * ceil(w / 32).
+template <int KK, typename In>
+__global__ void __launch_bounds__(kK5Warps * 32)
+lpg_phase_kernel(const In* __restrict__ raw, int64_t sb, int64_t sh, int64_t sw, int64_t sc,
+                 float* __restrict__ out, int h, int w, int items) {
+  constexpr int K = 2 * KK;
+  const int item = blockIdx.x * kK5Warps + threadIdx.x / 32;
+  const int Hh = h * KK, Wh = w * KK;
+  const int chunks = (w + 31) / 32;
+  const int row = item / chunks;  // b * Hh + U
+  const int cx = (item - row * chunks) * 32 + threadIdx.x % 32;
+  if (item >= items || cx >= w) return;
+  const int b = row / Hh, U = row - b * Hh;
+  const float4 c = spherical_cell(raw + b * sb + (int64_t)(U / KK) * sh + (int64_t)cx * sw, sc);
+  float u[2][KK];  // phase column j's offset in plane column pz: in-patch column 2*j + pz
+#pragma unroll
+  for (int pz = 0; pz < 2; ++pz) {
+#pragma unroll
+    for (int j = 0; j < KK; ++j) u[pz][j] = patch_offset(2 * j + pz, K);
   }
-  __syncthreads();
 
-  const int V = v0 + t;
-  if (V >= Wh) return;
-  const float4 c = cell[t / kk];
   const int64_t plane = (int64_t)Hh * Wh;
-  float* o = out + (int64_t)b * 4 * plane + (int64_t)U * Wh + V;
+  const int V0 = cx * KK;
+  float* o = out + (int64_t)b * 4 * plane + (int64_t)U * Wh + V0;
 #pragma unroll
   for (int py = 0; py < 2; ++py) {
-    const float v = patch_offset(2 * (U % kk) + py, k);
+    const float v = patch_offset(2 * (U % KK) + py, K);
 #pragma unroll
     for (int pz = 0; pz < 2; ++pz) {
-      o[(2 * py + pz) * plane] = lpg_value(c, patch_offset(2 * (V % kk) + pz, k), v);
+      float val[KK];
+#pragma unroll
+      for (int j = 0; j < KK; ++j) val[j] = lpg_value(c, u[pz][j], v);
+      store_cols<KK>(o + (2 * py + pz) * plane, val, V0, Wh);
     }
   }
 }
+
+__global__ void empty_kernel() {}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -396,13 +474,73 @@ int backward(const void* in, int dtype, int64_t sb, int64_t sh, int64_t sw, int6
   }
 }
 
+// The SM count of the current device, read once per device.
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
+// A forward launch: warps per cell row (K1, K3: R, the split of its k rows;
+// K5: its k/2 phase rows), warps per block, blocks and work items.
+struct Launch {
+  int split, warps, blocks, items;
+};
+
+Launch fwd_launch(int B, int h, int w, int k) {
+  const int cells = B * h * ((w * k + 127) / 128);  // items without a split
+  const int split = k == 8 && cells < kSplitBelow * sm_count() ? kSplitRows : 1;
+  const int warps = split == 1 ? kWarps : kSplitWarps;
+  const int items = cells * split;
+  return {split, warps, (items + warps - 1) / warps, items};
+}
+
+Launch phase_launch(int B, int h, int w, int k) {
+  const int kk = k / 2, items = B * h * kk * ((w + 31) / 32);
+  return {kk, kK5Warps, (items + kK5Warps - 1) / kK5Warps, items};
+}
+
+template <bool kRaw, int K, int R, typename In>
+int launch_fwd_split(const void* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, float* out,
+                     int h, int w, Launch l, cudaStream_t stream) {
+  constexpr int kW = R == 1 ? kWarps : kSplitWarps;
+  lpg_fwd_kernel<kRaw, K, R, kW, In><<<l.blocks, kW * 32, 0, stream>>>(
+      static_cast<const In*>(in), sb, sh, sw, sc, out, h, w, l.items);
+  return (int)cudaGetLastError();
+}
+
 template <bool kRaw, int K, typename In>
 int launch_fwd(const void* in, int64_t sb, int64_t sh, int64_t sw, int64_t sc, float* out, int B,
                int h, int w, cudaStream_t stream) {
-  const int items = B * h * ((w * K + 127) / 128);
-  lpg_fwd_kernel<kRaw, K, In><<<grid_for(items), kWarps * 32, 0, stream>>>(
-      static_cast<const In*>(in), sb, sh, sw, sc, out, h, w, items);
+  const Launch l = fwd_launch(B, h, w, K);
+  if constexpr (K == 8) {
+    if (l.split == kSplitRows) {
+      return launch_fwd_split<kRaw, K, kSplitRows, In>(in, sb, sh, sw, sc, out, h, w, l, stream);
+    }
+  }
+  return launch_fwd_split<kRaw, K, 1, In>(in, sb, sh, sw, sc, out, h, w, l, stream);
+}
+
+template <int KK, typename In>
+int launch_phase(const void* raw, int64_t sb, int64_t sh, int64_t sw, int64_t sc, float* out, int B,
+                 int h, int w, cudaStream_t stream) {
+  const Launch l = phase_launch(B, h, w, 2 * KK);
+  lpg_phase_kernel<KK, In><<<l.blocks, kK5Warps * 32, 0, stream>>>(
+      static_cast<const In*>(raw), sb, sh, sw, sc, out, h, w, l.items);
   return (int)cudaGetLastError();
+}
+
+template <typename In>
+int phase_k(const void* raw, int64_t sb, int64_t sh, int64_t sw, int64_t sc, float* out, int B, int h,
+            int w, int k, cudaStream_t s) {
+  switch (k) {
+    case 2: return launch_phase<1, In>(raw, sb, sh, sw, sc, out, B, h, w, s);
+    case 4: return launch_phase<2, In>(raw, sb, sh, sw, sc, out, B, h, w, s);
+    case 8: return launch_phase<4, In>(raw, sb, sh, sw, sc, out, B, h, w, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <bool kRaw, typename In>
@@ -459,14 +597,33 @@ extern "C" int lpg_backward(const void* plane, int dtype, int64_t sb, int64_t sh
   return backward<true>(plane, dtype, sb, sh, sw, sc, g, gb, gh, gw, dplane, B, h, w, k, stream);
 }
 
-// K5: raw (B, h, w, 3) f32 -> phase planes (B, 4, h*k/2, w*k/2)
-extern "C" int lpg_phase_forward(const float* raw, int64_t sb, int64_t sh, int64_t sw,
-                                 int64_t sc, float* out, int B, int h, int w, int k,
-                                 void* stream) {
-  if (k != 2 && k != 4 && k != 8) return (int)cudaErrorInvalidValue;
-  const int kk = k / 2;
-  const dim3 grid((w * kk + kThreads - 1) / kThreads, h * kk, B);
-  lpg_phase_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(raw, sb, sh, sw, sc, out, h, w, k);
+// K5: raw (B, h, w, 3) in `dtype` -> phase planes (B, 4, h*k/2, w*k/2)
+extern "C" int lpg_phase_forward(const void* raw, int dtype, int64_t sb, int64_t sh, int64_t sw,
+                                 int64_t sc, float* out, int B, int h, int w, int k, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return phase_k<float>(raw, sb, sh, sw, sc, out, B, h, w, k, s);
+    case 1: return phase_k<__nv_bfloat16>(raw, sb, sh, sw, sc, out, B, h, w, k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The launch of a forward at (B, h, w, k): kernel 0 = K1 and K3, 1 = K5.
+// shape[0..3] = warps per cell row, warps per block, blocks, work items.
+extern "C" int lpg_forward_launch(int kernel, int B, int h, int w, int k, int* shape) {
+  if ((k != 2 && k != 4 && k != 8) || (kernel != 0 && kernel != 1)) return (int)cudaErrorInvalidValue;
+  const Launch l = kernel == 0 ? fwd_launch(B, h, w, k) : phase_launch(B, h, w, k);
+  shape[0] = l.split, shape[1] = l.warps, shape[2] = l.blocks, shape[3] = l.items;
+  return 0;
+}
+
+// An empty kernel on the grid and block of that forward: the device time
+// a launch of this shape cannot go under.
+extern "C" int lpg_empty_launch(int kernel, int B, int h, int w, int k, void* stream) {
+  int shape[4];
+  const int err = lpg_forward_launch(kernel, B, h, w, k, shape);
+  if (err != 0) return err;
+  empty_kernel<<<shape[2], shape[1] * 32, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

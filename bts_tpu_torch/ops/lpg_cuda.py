@@ -153,9 +153,10 @@ def _lib() -> ctypes.CDLL:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     fwd = [vp, i32, i64, i64, i64, i64, vp, i32, i32, i32, i32, vp]
     bwd = [vp, i32, i64, i64, i64, i64, vp, i64, i64, i64, vp, i32, i32, i32, i32, vp]
-    phase = [vp, i64, i64, i64, i64, vp, i32, i32, i32, i32, vp]  # K5: f32 raw, no dtype code
-    for name, argtypes in (("lpg_fused_forward", fwd), ("lpg_forward", fwd), ("lpg_phase_forward", phase),
-                           ("lpg_fused_backward", bwd), ("lpg_backward", bwd)):
+    for name, argtypes in (("lpg_fused_forward", fwd), ("lpg_forward", fwd), ("lpg_phase_forward", fwd),
+                           ("lpg_fused_backward", bwd), ("lpg_backward", bwd),
+                           ("lpg_forward_launch", [i32, i32, i32, i32, i32, vp]),
+                           ("lpg_empty_launch", [i32, i32, i32, i32, i32, vp])):
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = i32
     lib.lpg_error_string.argtypes = [i32]
@@ -190,10 +191,14 @@ def _stream(device) -> int:
 
 
 def _forward(entry: str, x: torch.Tensor, k: int, name: str, out_shape):
-    """Launch forward ``entry`` of the library on a checked CUDA input into a
-    new f32 ``out_shape`` buffer; returns it and whether a kernel launched.
-    The kernel reads x through its strides (a permuted view is not copied)
-    in its own dtype where that is f32 or bf16, else an f32 copy."""
+    """Launch forward ``entry`` of the library (K1, K3 or K5) on a checked
+    CUDA input into a new f32 ``out_shape`` buffer; returns it and whether a
+    kernel launched.  The kernel reads x through its strides (a permuted
+    view is not copied) in its own dtype where that is f32 or bf16, else an
+    f32 copy.  The library picks the launch from the shape and the card's
+    SM count (``launch_shape``): at k = 8 K1 and K3 split each cell row's
+    8 output rows among 4 warps where the grid would not fill the card (the
+    b1 serving head), K5 gives each warp one phase row."""
     b, h, w, _ = x.shape
     xk = x if x.dtype in _DTYPES else x.float()
     out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
@@ -204,6 +209,16 @@ def _forward(entry: str, x: torch.Tensor, k: int, name: str, out_shape):
                                      b, h, w, k, _stream(x.device))
     _raise_on(err, name)
     return out, True
+
+
+def launch_shape(kernel: str, b: int, h: int, w: int, k: int) -> dict:
+    """The launch the library makes for forward ``kernel`` ("K1", "K3" or
+    "K5") at (B, h, w, k) on the current CUDA device: warps per cell row
+    (K1, K3: the split of its k output rows; K5: its k/2 phase rows),
+    warps per block, blocks and warp work items."""
+    shape = (ctypes.c_int * 4)()
+    _raise_on(_lib().lpg_forward_launch(int(kernel == "K5"), b, h, w, k, shape), f"{kernel} launch shape")
+    return dict(zip(("warps_per_cell_row", "warps_per_block", "blocks", "items"), shape))
 
 
 def _backward(entry: str, x: torch.Tensor, g: torch.Tensor, k: int, name: str, out_shape):

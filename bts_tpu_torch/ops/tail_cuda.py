@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from bts_tpu_torch.ops import _build, lpg_cuda
-from bts_tpu_torch.ops.lpg_cuda import _check_raw, _raise_on, _stream, lpg_fused_plain
+from bts_tpu_torch.ops.lpg_cuda import _check_raw, _stream, lpg_fused_plain
 
 CIN = 64  # iconv2 channels: bts_size 512
 PARAM_BYTES = 92688  # bytes of pack_tail_params' buffer (fused_tail.cu's PARAM_BYTES)
@@ -72,21 +72,15 @@ def lpg_phase_planes_plain(raw3: torch.Tensor, k: int) -> torch.Tensor:
 def _k5_cuda(raw3: torch.Tensor, k: int) -> torch.Tensor:
     """K5 on a CUDA tensor, on the current stream; adds one to
     ``lpg_phase_planes.launches``.  The CUDA implementation of
-    :data:`lpg_phase_planes`."""
+    :data:`lpg_phase_planes`.  K5 reads raw in its own dtype (f32 or bf16:
+    a bf16 decoder launches no cast) through its strides; each lane
+    transforms one cell and stores its k/2 phase columns in all four planes,
+    each warp on one phase row."""
     _check_raw(raw3, k, "lpg_phase_planes")
     b, h, w, _ = raw3.shape
     kk = k // 2
-    if h * kk > 65535 or b > 65535:  # K5's grid: (column blocks, phase rows, B)
-        raise ValueError(f"lpg_phase_planes: grid too large for (B={b}, Hh={h * kk})")
-    rf = raw3.float()  # K5 reads f32, through its strides
-    out = torch.empty((b, 4, h * kk, w * kk), dtype=torch.float32, device=raw3.device)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(raw3.device):
-        err = lpg_cuda._lib().lpg_phase_forward(rf.data_ptr(), *rf.stride(), out.data_ptr(), b, h, w, k,
-                                               _stream(raw3.device))
-    _raise_on(err, "lpg_phase_planes")
-    lpg_phase_planes.launches += 1
+    out, launched = lpg_cuda._forward("lpg_phase_forward", raw3, k, "lpg_phase_planes", (b, 4, h * kk, w * kk))
+    lpg_phase_planes.launches += launched
     return out
 
 

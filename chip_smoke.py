@@ -20,7 +20,12 @@ Phases, one JSON line each, then the result:
                 K6, and the count of HMMA (tensor-core) instructions in the
                 SASS (cuobjdump) of each of K6's two instances (bf16 and f32
                 iconv2), which must be > 0.
-3. kernel     - K1 against its plain PyTorch version at the three shapes of
+3. floor      - the launch floor: the device time per call of an empty
+                kernel launched through the library (lpg_empty_launch) on the
+                grid and block of each forward launch whose row below
+                prints its floor (K1/K3 at the serving and ragged heads; K5
+                at the serving and b4 export heads).
+4. kernel     - K1 against its plain PyTorch version at the three shapes of
                 a 352x1216 forward and one ragged B=2 shape; rule rtol 2e-5,
                 atol 2e-6*max|ref| on pixels with |denominator| >= 1e-3 (the
                 excluded count is printed).  Times from CUDA events: device
@@ -28,28 +33,36 @@ Phases, one JSON line each, then the result:
                 kernel) and the median single-call latency of 50 calls;
                 the kernel alone (its library entry called directly on the
                 same tensors), the wrapper's overhead and the share of the
-                bound the kernel alone reaches, one row per head; and the
+                bound the kernel alone reaches, the launch (warps per cell
+                row: b1 heads split their rows; warps per block; blocks),
+                the floor and the distance above it, one row per head; and the
                 op's CUDA implementation called directly (the wrapper
                 before K1 became a torch.library op): its times and the
                 dispatcher's share of the call latency.
-4. kernel_bwd - K2 against its plain version at the three head shapes of
+5. kernel_bwd - K2 against its plain version at the three head shapes of
                 the config-4 training step (b16, 352x704) and a ragged B=2
                 shape, with f32 and bf16 raw; rule rtol 2e-4,
                 atol 2e-5*max|ref| on cells whose k x k denominators all
                 have |den| >= 1e-3 (excluded cells counted).  K1 at the same
                 three shapes.  Times, the kernel alone, overhead, bound and
-                share as phase 3, one row per head and the per-step sums.
+                share as phase 4 (K1 with its launch: no split, 8 warps per
+                block), one row per head and the per-step sums.
                 The device kernels one bf16 call of each wrapper launches
-                (torch.profiler): K1's and K2's own and nothing else, so
-                no cast of raw.
-5. kernel_lpg - K3 against its plain version at the three serving head
+                (torch.profiler, utils/profiling.py): K1's and K2's own and
+                nothing else, so no cast of raw.
+6. kernel_lpg - K3 against its plain version at the three serving head
                 shapes (planes from plane_from_spherical, max_depth 80) and
-                the ragged shape, K1's rule; K4 at the three config-4 head
+                the ragged shape, K1's rule, alone with its launch and
+                floor as phase 4; K4 at the three config-4 head
                 shapes with f32 and bf16 planes, K2's rule.  Times and
                 bounds.  Then the op path: local_planar_guidance forward and
                 backward at the serving heads, 3 K3 + 3 K4 launches.
-6. tail       - K5 against its plain version and against K1 interleaved,
-                bit for bit, at the three serving shapes; K6 against its
+7. tail       - K5 against its plain version and against K1 interleaved,
+                bit for bit, at the three serving shapes and the three b4
+                export heads, f32 and bf16 raw (bf16 also equal to K5 on its
+                f32 copy), alone with its launch and floor as phase 4 (the
+                plain version timed at the serving heads with f32 raw); one
+                bf16 call launches K5 alone (torch.profiler); K6 against its
                 plain version at 352x1216 b1 (B=1, Hh=176, W2=608) and at a
                 ragged B=2, Hh=16, W2=152: max and mean abs error and pixels
                 above 1e-4, rule mean <= 2e-5, max <= 5e-2, share above 1e-4
@@ -60,21 +73,24 @@ Phases, one JSON line each, then the result:
                 SM cycles per block in each stage (staging, upconv,
                 reduction chain, iconv1, final conv) from the profiling
                 build.
-7. slice      - serving: create_model + bts_test.predict, DenseNet-161,
+8. slice      - serving: create_model + bts_test.predict, DenseNet-161,
                 bts_size 512, 352x1216, batch 1, KITTI focal, seeded
                 weights, float32 and bfloat16; 3 K1 launches per forward;
                 outputs finite where the LPG denominators are non-zero;
                 depth in (0, max_depth]; the kernel path against
                 use_pallas="never"; the f32 model against the same weights on
                 the CPU at 64x96; median ms per forward and peak memory.
-8. slice_tail - the same serving with --fused_tail always: 3 K5 + 1 K6 and
-                no K1 per forward; finite outputs, depth in (0, max_depth];
+9. slice_tail - the same serving with --fused_tail always: 3 K5 + 1 K6 and
+                no K1 per forward; the device kernels of one bf16 forward
+                (torch.profiler): their count, and under each K5 and K6 op
+                that kernel alone (no cast); finite outputs, depth in
+                (0, max_depth];
                 against use_pallas="never" on the fused path (maps by K1's
                 rule, d1x1 and final by K6's); against the literal tail
                 (fused_tail="auto": maps <= 1e-5, d1x1 <= 5e-3, final
                 <= 5e-3*max_depth); 20 forwards of each path in turns
                 (median, q1, q3) and each path's peak memory.
-9. train      - config 4 (DenseNet-161, bts_size 512, KITTI 352x1216 uint8
+10. train     - config 4 (DenseNet-161, bts_size 512, KITTI 352x1216 uint8
                 frames augmented to 352x704 with rotation <= 1 degree, b16,
                 bfloat16, remat 'layer', AdamW + poly decay) through
                 create_model + training.Trainer on seeded synthetic data
@@ -90,7 +106,7 @@ Phases, one JSON line each, then the result:
                 (kernel, use_pallas="never") in turns, with each path's peak
                 memory; a torch.profiler window of 2 steps for the device
                 busy share and the top kernels.
-10. train_ddp - config 4 under torch.distributed.  (a) bts_main
+11. train_ddp - config 4 under torch.distributed.  (a) bts_main
                 (@arguments/arguments_train_eigen.txt: DenseNet-161, b16,
                 bf16, remat 'layer') through python -m torch.distributed.run
                 --nproc_per_node 1, NCCL, on a synthetic KITTI tree of 16
@@ -110,17 +126,17 @@ Phases, one JSON line each, then the result:
                 ms per step at b16 (2 x b8, bf16), 3 K1 + 3 K2 per step per
                 rank.  The ranks are this script (train_ddp_rank); a failed
                 rank fails the phase.
-11. kernel_nyu - K1 and K2 at the three config-3 heads (NYU 416x544, b4)
+12. kernel_nyu - K1 and K2 at the three config-3 heads (NYU 416x544, b4)
                 and K1 at the three heads of a NYU online eval (480x640, b4),
                 f32 and bf16 raw, by the rules and with the columns of
                 kernel_bwd; the per-step sums of config 3.
-12. encoders  - ResNet-50/101, ResNeXt-50/101 and MobileNetV2 serving at
+13. encoders  - ResNet-50/101, ResNeXt-50/101 and MobileNetV2 serving at
                 352x1216 b1 (bts_size 512, seeded weights): one f32 forward
                 with 3 K1 launches against use_pallas="never" (maps by K1's
                 rule, final rtol 1e-5) and against the CPU at 64x96 (rtol
                 2e-4, atol 2e-4*max|ref|); median ms of 5 bf16 forwards and
                 the peak memory.
-13. train_nyu - config 3 (ResNeXt-101, NYU 480x640 frames border-cropped to
+14. train_nyu - config 3 (ResNeXt-101, NYU 480x640 frames border-cropped to
                 427x565 and augmented to 416x544 with rotation <= 2.5
                 degrees, depth in [0.2, 9.5) m, b4, bf16, no remat, AdamW lr
                 1e-4, wd 1e-2, eps 1e-3) through create_model + Trainer, by
@@ -132,7 +148,7 @@ Phases, one JSON line each, then the result:
                 2 warm-up and 10 timed b4 bf16 steps (3 K1 and 3 K2
                 launches each): ms per step, images/s, peak memory; a
                 torch.profiler window of 2 steps (busy share, top kernels).
-14. eval      - the entry points on a synthetic NYU tree of 10 frames at
+15. eval      - the entry points on a synthetic NYU tree of 10 frames at
                 480x640: bts_main with the config-3 recipe
                 (arguments/arguments_train_nyu.txt, ResNeXt-101, b4) for 4
                 steps with --do_online_eval --eval_freq 2 (3 K1 launches per
@@ -144,9 +160,9 @@ Phases, one JSON line each, then the result:
                 against b1 on that state in f32 (1e-4 of each continuous
                 metric, d1-d3 within 2 pixels per frame); a KITTI online
                 eval (KB crop, garg crop, padded back to 375x1242) of the
-                config-4 state from phase 9 over 20 frames at b16: finite,
+                config-4 state from phase 10 over 20 frames at b16: finite,
                 3 K1 launches per batch forward, images/s.
-15. serving   - DenseNet-161, bts_size 512, KITTI, seeded weights, f32:
+16. serving   - DenseNet-161, bts_size 512, KITTI, seeded weights, f32:
                 an upstream-style full .pth ({"model": module.encoder.
                 base_model.* / module.decoder.*}) through bts_convert, read
                 back by read_weights equal to the source; bts_export at
@@ -170,7 +186,7 @@ Phases, one JSON line each, then the result:
                 2): 3 K1 per batch forward, each PNG within 1 unit of
                 bts_test's for the same frame, through the kernels and
                 through --use_pallas never; frames/s.
-16. input     - the input plane at config-4 width.  A leg this machine
+17. input     - the input plane at config-4 width.  A leg this machine
                 cannot run (the native library does not build: no libpng/
                 libjpeg headers; no array_record package) is named on its
                 own line with the reason, first.  (a) 16 synthetic KITTI
@@ -196,7 +212,7 @@ Phases, one JSON line each, then the result:
                 one step in a subprocess with a NaN in the weight of
                 encoder.features.denseblock2.denselayer1.conv1: exits non-zero
                 with FloatingPointError naming it.
-17. result    - {"kernels": [...]}: all six kernels, launches by main path
+18. result    - {"kernels": [...]}: all six kernels, launches by main path
                 (serve, serve_tail, train, train_ddp, op, encoders,
                 train_nyu, eval, export, serve_http, sequence, input; each path's
                 counts set to 0 just before it runs), and ms,
@@ -204,7 +220,9 @@ Phases, one JSON line each, then the result:
                 named in "per" (K1, K2: a training step's three heads, bf16
                 raw; K3: the three serving heads; K4: the three config-4
                 heads, bf16 plane; K5: a fused-tail forward's three heads;
-                K6: one 352x1216 forward), the nvidia-smi line, and the
+                K6: one 352x1216 forward), with kernel_only_ms,
+                share_of_bound and (K3, K5) floor_ms where measured, the
+                nvidia-smi line, and the
                 contract line {"ok": true, ...} last.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -228,6 +246,7 @@ import numpy as np
 import torch
 
 SLICE_SHAPES = [(1, 44, 152, 8), (1, 88, 304, 4), (1, 176, 608, 2)]  # (B, h, w, k) at 352x1216
+EXPORT_SHAPES = [(4, 44, 152, 8), (4, 88, 304, 4), (4, 176, 608, 2)]  # the exported b4 serving heads
 TRAIN_SHAPES = [(16, 44, 88, 8), (16, 88, 176, 4), (16, 176, 352, 2)]  # b16 at 352x704
 RAGGED_SHAPE = (2, 13, 37, 8)  # W = 296, not a multiple of 32
 TAIL_SHAPES = [(1, 176, 608), (2, 16, 152)]  # (B, Hh, W2): 352x1216 b1, and a ragged width
@@ -374,10 +393,13 @@ def device_median_ms(fn, host_ms: float, runs: int = 50, repeats: int = 7) -> fl
     return statistics.median(times)
 
 
-def timings(fn, plain_fn) -> dict:
-    row = {"call_ms": call_median_ms(fn), "plain_call_ms": call_median_ms(plain_fn)}
+def timings(fn, plain_fn=None) -> dict:
+    """Host latency and device time of ``fn``, and of ``plain_fn`` where given."""
+    row = {"call_ms": call_median_ms(fn)}
     row["ms"] = device_median_ms(fn, row["call_ms"])
-    row["plain_ms"] = device_median_ms(plain_fn, row["plain_call_ms"])
+    if plain_fn is not None:
+        row["plain_call_ms"] = call_median_ms(plain_fn)
+        row["plain_ms"] = device_median_ms(plain_fn, row["plain_call_ms"])
     return row
 
 
@@ -405,15 +427,56 @@ def alone(row: dict, launch) -> None:
     row["share_of_bound"] = row["bound_ms"] / row["kernel_only_ms"]
 
 
-def k1_alone(lib, raw, k):
-    """K1 launched directly on raw as it is (its dtype and strides)."""
+def fwd_alone(lib, entry, x, k, out_shape=None):
+    """A forward kernel launched directly on x as it is (its dtype and
+    strides): library entry ``entry``, K1 (lpg_fused_forward) and K3
+    (lpg_forward) into (B, h*k, w*k), K5 (lpg_phase_forward) into
+    ``out_shape`` (B, 4, h*k/2, w*k/2)."""
     from bts_tpu_torch.ops.lpg_cuda import _DTYPES
 
-    b, h, w, _ = raw.shape
-    out = torch.empty((b, h * k, w * k), device=raw.device)
+    b, h, w, _ = x.shape
+    out = torch.empty(out_shape or (b, h * k, w * k), device=x.device)
     stream = torch.cuda.current_stream().cuda_stream
-    return lambda: lib.lpg_fused_forward(raw.data_ptr(), _DTYPES[raw.dtype], *raw.stride(), out.data_ptr(),
-                                         b, h, w, k, stream)
+    fn = getattr(lib, entry)
+    return lambda: fn(x.data_ptr(), _DTYPES[x.dtype], *x.stride(), out.data_ptr(), b, h, w, k, stream)
+
+
+def launch_floor(row: dict, kernel: str, b: int, h: int, w: int, k: int, floors: dict) -> None:
+    """The launch the library makes for forward ``kernel`` (K1, K3, K5) at
+    this shape, the floor (an empty kernel on the same grid and block,
+    phase floor) and how far the kernel alone sits above it."""
+    from bts_tpu_torch.ops.lpg_cuda import launch_shape
+
+    row["launch"] = launch_shape(kernel, b, h, w, k)
+    row["floor_ms"] = floors[("K5" if kernel == "K5" else "K1", b, h, w, k)]
+    row["above_floor_ms"] = row["kernel_only_ms"] - row["floor_ms"]
+
+
+def phase_floor(card: str) -> dict:
+    """The launch floor: device time per call of an empty kernel launched
+    through the library (lpg_empty_launch) on the grid and block of each
+    forward launch whose row prints its floor: K1 and K3 (they share their
+    launch) at the serving heads and the ragged shape, K5 at the serving and
+    b4 export heads.  Returns the floors by (kernel, B, h, w, k)."""
+    from bts_tpu_torch.ops.lpg_cuda import _lib, launch_shape
+
+    stream = torch.cuda.current_stream().cuda_stream
+    floors, rows = {}, []
+    shapes = [("K1", s) for s in SLICE_SHAPES + [RAGGED_SHAPE]] + [("K5", s) for s in SLICE_SHAPES + EXPORT_SHAPES]
+    for kernel, (b, h, w, k) in shapes:
+        kind = int(kernel == "K5")
+
+        def empty():
+            check(_lib().lpg_empty_launch(kind, b, h, w, k, stream) == 0, "empty launch failed")
+
+        row = {"kernel": kernel, "shape": [b, h, w, k], "launch": launch_shape(kernel, b, h, w, k),
+               "call_ms": call_median_ms(empty)}
+        row["ms"] = device_median_ms(empty, row["call_ms"])
+        floors[(kernel, b, h, w, k)] = row["ms"]
+        rows.append(row)
+    emit({"phase": "floor", "card": card, "what": "empty kernel through lpg_empty_launch on each "
+          "forward's grid and block (K1 and K3 share theirs)", "rows": rows})
+    return floors
 
 
 def k2_alone(lib, raw, g, k):
@@ -425,19 +488,6 @@ def k2_alone(lib, raw, g, k):
     stream = torch.cuda.current_stream().cuda_stream
     return lambda: lib.lpg_fused_backward(raw.data_ptr(), _DTYPES[raw.dtype], *raw.stride(), g.data_ptr(),
                                           *g.stride(), dx.data_ptr(), b, h, w, k, stream)
-
-
-def device_kernels(fn) -> list:
-    """Names of the device kernels one call of ``fn`` launches (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-            for _ in range(e.count)]
 
 
 def compare_lpg(out, ref, den) -> dict:
@@ -475,7 +525,7 @@ def _raw(b, h, w, k, dtype=torch.float32):
     return nchw.to(dtype).permute(0, 2, 3, 1)  # the (B, h, w, 3) view the decoder passes
 
 
-def phase_kernel(card: str) -> None:
+def phase_kernel(card: str, floors: dict) -> None:
     from bts_tpu_torch.ops.lpg_cuda import _k1_cuda, _lib, fused_denominator, lpg_fused, lpg_fused_plain
 
     rows = []
@@ -489,7 +539,8 @@ def phase_kernel(card: str) -> None:
         check(row["within_rule"], f"K1 disagrees with plain at {row}")
         row.update(timings(lambda: lpg_fused(raw, k), lambda: lpg_fused_plain(raw, k)))
         row.update(bound(4 * b * h * w * 3 + 4 * b * h * w * k * k, K1_OPS_PER_PIXEL * b * h * w * k * k))
-        alone(row, k1_alone(_lib(), raw, k))
+        alone(row, fwd_alone(_lib(), "lpg_fused_forward", raw, k))
+        launch_floor(row, "K1", b, h, w, k, floors)
         # the op's CUDA implementation called directly: the wrapper as it was
         # before K1 became a torch.library op, so the dispatcher's share shows
         direct = lambda: _k1_cuda(raw, k)  # noqa: E731
@@ -508,7 +559,7 @@ def lpg_rows(b, h, w, k, dtype, backward: bool = True) -> list:
     each against its plain version by its rule, its times, bound, the kernel
     alone, the wrapper's overhead and the share of the bound; one row each."""
     from bts_tpu_torch.ops.lpg_cuda import (
-        _lib, fused_denominator, lpg_fused, lpg_fused_bwd, lpg_fused_bwd_plain, lpg_fused_plain,
+        _lib, fused_denominator, launch_shape, lpg_fused, lpg_fused_bwd, lpg_fused_bwd_plain, lpg_fused_plain,
     )
 
     rows = []
@@ -541,7 +592,8 @@ def lpg_rows(b, h, w, k, dtype, backward: bool = True) -> list:
     frow.update(timings(lambda: lpg_fused(raw, k), lambda: lpg_fused_plain(raw, k)))
     frow.update(bound(3 * esize * b * h * w + 4 * b * h * w * k * k,
                       K1_OPS_PER_PIXEL * b * h * w * k * k))
-    alone(frow, k1_alone(_lib(), raw, k))
+    alone(frow, fwd_alone(_lib(), "lpg_fused_forward", raw, k))
+    frow["launch"] = launch_shape("K1", b, h, w, k)
     rows.append(frow)
     return rows
 
@@ -564,6 +616,7 @@ def phase_kernel_bwd(card: str) -> dict:
     device kernels one bf16 call of each wrapper launches.  Returns the
     per-step sums for the result line."""
     from bts_tpu_torch.ops.lpg_cuda import lpg_fused, lpg_fused_bwd
+    from bts_tpu_torch.utils.profiling import launched_kernels
 
     rows, total = [], {}
     for b, h, w, k in TRAIN_SHAPES + [RAGGED_SHAPE]:
@@ -579,8 +632,8 @@ def phase_kernel_bwd(card: str) -> dict:
     b, h, w, k = TRAIN_SHAPES[0]
     raw = _raw(b, h, w, k, torch.bfloat16)
     g = torch.ones((b, h * k, w * k), device="cuda")
-    launched = {"K1": device_kernels(lambda: lpg_fused(raw, k)),
-                "K2": device_kernels(lambda: lpg_fused_bwd(raw, g, k))}
+    launched = {"K1": launched_kernels(lambda: lpg_fused(raw, k))["kernels"],
+                "K2": launched_kernels(lambda: lpg_fused_bwd(raw, g, k))["kernels"]}
     emit({"phase": "kernel_bwd",
           "rule": f"K2: rtol {GRAD_RTOL} (bf16: 2^-7), atol {GRAD_ATOL_SCALE}*max|ref| on cells "
                   f"with every |den|>={DENOM_MIN}; K1: rtol {RTOL}, atol {ATOL_SCALE}*max|ref|",
@@ -632,20 +685,23 @@ def _plane(b, h, w, k, dtype=torch.float32):
 
 def _add(total: dict, row: dict) -> None:
     for key in ("ms", "plain_ms", "bound_ms"):
-        total[key] = total.get(key, 0.0) + row[key]
+        if key in row:
+            total[key] = total.get(key, 0.0) + row[key]
     total["bound_by"] = row["bound_by"]
 
 
-def phase_kernel_lpg(card: str):
+def phase_kernel_lpg(card: str, floors: dict):
     """K3 and K4, the public LPG op's kernels: each against its plain
-    version, then the op path (forward and backward through
-    local_planar_guidance at the three serving heads) with its launches."""
+    version (K3 also alone, with its launch and floor), then the op path
+    (forward and backward through local_planar_guidance at the three
+    serving heads) with its launches."""
     from bts_tpu_torch.ops.lpg import local_planar_guidance
     from bts_tpu_torch.ops.lpg_cuda import (
-        lpg_plane, lpg_plane_bwd, lpg_plane_bwd_plain, lpg_plane_fwd, lpg_plane_plain,
+        _lib, lpg_plane, lpg_plane_bwd, lpg_plane_bwd_plain, lpg_plane_fwd, lpg_plane_plain,
     )
 
-    rows, total = [], {"K3": {"max_abs_err": 0.0}, "K4": {"max_abs_err": 0.0}}
+    rows, total = [], {"K3": {"max_abs_err": 0.0, "kernel_only_ms": 0.0, "floor_ms": 0.0},
+                       "K4": {"max_abs_err": 0.0}}
     for b, h, w, k in SLICE_SHAPES + [RAGGED_SHAPE]:
         plane = _plane(b, h, w, k)
         out, ref = lpg_plane_fwd(plane, k), lpg_plane_plain(plane, k)
@@ -655,10 +711,14 @@ def phase_kernel_lpg(card: str):
         check(row["within_rule"], f"K3 disagrees with plain at {row}")
         row.update(timings(lambda: lpg_plane_fwd(plane, k), lambda: lpg_plane_plain(plane, k)))
         row.update(bound(16 * b * h * w + 4 * b * h * w * k * k, K1_OPS_PER_PIXEL * b * h * w * k * k))
+        alone(row, fwd_alone(_lib(), "lpg_forward", plane, k))
+        launch_floor(row, "K3", b, h, w, k, floors)
         rows.append(row)
         if (b, h, w, k) in SLICE_SHAPES:
             _add(total["K3"], row)
             total["K3"]["max_abs_err"] = max(total["K3"]["max_abs_err"], row["max_abs_err"])
+            total["K3"]["kernel_only_ms"] += row["kernel_only_ms"]
+            total["K3"]["floor_ms"] += row["floor_ms"]
     for b, h, w, k in TRAIN_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             plane = _plane(b, h, w, k, dtype)
@@ -691,6 +751,7 @@ def phase_kernel_lpg(card: str):
     torch.cuda.synchronize()
     launches = {"lpg_plane": lpg_plane.launches, "lpg_plane_bwd": lpg_plane_bwd.launches}
     check(launches == {"lpg_plane": 3, "lpg_plane_bwd": 3}, f"op path launches {launches}")
+    total["K3"]["share_of_bound"] = total["K3"]["bound_ms"] / total["K3"]["kernel_only_ms"]
     emit({"phase": "kernel_lpg",
           "rule": f"K3: rtol {RTOL}, atol {ATOL_SCALE}*max|ref|, |den|>={DENOM_MIN}; K4: rtol {GRAD_RTOL} "
                   f"(bf16: 2^-7), atol {GRAD_ATOL_SCALE}*max|ref| on cells with every |den|>={DENOM_MIN}",
@@ -759,30 +820,57 @@ def stage_cycles(lib_path, iconv2, maps, params, b, hh, w2) -> dict:
     return out
 
 
-def phase_tail(card: str, clocks_lib) -> dict:
-    """K5 against its plain version and bit-equal to K1 interleaved; K6
-    against its plain version; times and bounds of each call; K6's stage
-    cycles from its profiling build ``clocks_lib``."""
+def phase_tail(card: str, clocks_lib, floors: dict) -> dict:
+    """K5 against its plain version and bit-equal to K1 interleaved, with
+    f32 and bf16 raw, at the serving and b4 export heads, alone with its
+    launch and floor; K6 against its plain version; times and bounds of
+    each call; K6's stage cycles from its profiling build ``clocks_lib``."""
     from bts_tpu_torch.models.bts import set_float32_precision
     from bts_tpu_torch.ops import tail_cuda
-    from bts_tpu_torch.ops.lpg_cuda import lpg_fused
+    from bts_tpu_torch.ops.lpg_cuda import _lib, lpg_fused
+    from bts_tpu_torch.utils.profiling import launched_kernels
 
     set_float32_precision()  # the plain tail's f32 convs without TF32
-    rows, total = [], {"K5": {"max_abs_err": 0.0}, "K6": {}}
-    for b, h, w, k in SLICE_SHAPES:
-        raw = _raw(b, h, w, k)
-        ph, plain, full = tail_cuda.lpg_phase_planes(raw, k), tail_cuda.lpg_phase_planes_plain(raw, k), lpg_fused(raw, k)
-        torch.cuda.synchronize()
-        row = {"kernel": "K5", "shape": [b, h, w, 3], "k": k, "out": list(ph.shape), "card": card,
-               "equal_to_plain": torch.equal(ph, plain),
-               "equal_to_k1_interleaved": torch.equal(tail_cuda.interleave2x2(ph), full),
-               "max_abs_err": (ph - plain).abs().max().item()}
-        check(row["equal_to_plain"] and row["equal_to_k1_interleaved"], f"K5 not bit-equal at {row}")
-        row.update(timings(lambda: tail_cuda.lpg_phase_planes(raw, k), lambda: tail_cuda.lpg_phase_planes_plain(raw, k)))
-        row.update(bound(12 * b * h * w + 4 * b * h * w * k * k, K1_OPS_PER_PIXEL * b * h * w * k * k))
-        rows.append(row)
-        _add(total["K5"], row)
-        total["K5"]["max_abs_err"] = max(total["K5"]["max_abs_err"], row["max_abs_err"])
+    rows, total = [], {"K6": {}}
+    # K5 per forward: "K5" the serving heads with f32 raw (the result line's),
+    # then bf16 raw (what a bf16 decoder passes) and the b4 export heads
+    for shapes, key in ((SLICE_SHAPES, "K5"), (EXPORT_SHAPES, "K5 b4 export")):
+        for b, h, w, k in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                raw = _raw(b, h, w, k, dtype)
+                ph, plain = tail_cuda.lpg_phase_planes(raw, k), tail_cuda.lpg_phase_planes_plain(raw, k)
+                full = lpg_fused(raw, k)
+                torch.cuda.synchronize()
+                row = {"kernel": "K5", "shape": [b, h, w, 3], "k": k, "raw_dtype": str(dtype)[6:],
+                       "out": list(ph.shape), "card": card,
+                       "equal_to_plain": torch.equal(ph, plain),
+                       "equal_to_k1_interleaved": torch.equal(tail_cuda.interleave2x2(ph), full),
+                       "equal_to_f32_copy": torch.equal(ph, tail_cuda.lpg_phase_planes(raw.float(), k)),
+                       "max_abs_err": (ph - plain).abs().max().item()}
+                check(row["equal_to_plain"] and row["equal_to_k1_interleaved"] and row["equal_to_f32_copy"],
+                      f"K5 not bit-equal at {row}")
+                # the plain version timed at the result line's heads only
+                plain = key == "K5" and dtype == torch.float32
+                row.update(timings(lambda: tail_cuda.lpg_phase_planes(raw, k),
+                                   (lambda: tail_cuda.lpg_phase_planes_plain(raw, k)) if plain else None))
+                row.update(bound(3 * raw.element_size() * b * h * w + 4 * b * h * w * k * k,
+                                 K1_OPS_PER_PIXEL * b * h * w * k * k))
+                alone(row, fwd_alone(_lib(), "lpg_phase_forward", raw, k, tuple(ph.shape)))
+                launch_floor(row, "K5", b, h, w, k, floors)
+                rows.append(row)
+                t = total.setdefault(key if dtype == torch.float32 else f"{key} bf16",
+                                     {"max_abs_err": 0.0, "kernel_only_ms": 0.0, "floor_ms": 0.0})
+                _add(t, row)
+                t["max_abs_err"] = max(t["max_abs_err"], row["max_abs_err"])
+                t["kernel_only_ms"] += row["kernel_only_ms"]
+                t["floor_ms"] += row["floor_ms"]
+                t["share_of_bound"] = t["bound_ms"] / t["kernel_only_ms"]
+    # bf16 raw: the wrapper launches K5 and nothing else (no cast)
+    b, h, w, k = SLICE_SHAPES[0]
+    raw = _raw(b, h, w, k, torch.bfloat16)
+    k5_kernels = launched_kernels(lambda: tail_cuda.lpg_phase_planes(raw, k))["kernels"]
+    check(len(k5_kernels) == 1 and "lpg_phase_kernel" in k5_kernels[0],
+          f"K5's wrapper on bf16 raw launched {k5_kernels}")
     for b, hh, w2 in TAIL_SHAPES:
         iconv2, maps, params = _tail_inputs(b, hh, w2)
         fin, d1 = tail_cuda.fused_tail(iconv2, *maps, params)
@@ -821,9 +909,10 @@ def phase_tail(card: str, clocks_lib) -> dict:
                   **{key: row[key] for key in ("kernel_only_ms", "ms", "wrapper_overhead_ms", "bound_ms",
                                                "cuda_core_f32_floor_ms", "share_of_bound")},
                   "stage_cycles_median": stage_cycles(clocks_lib, iconv2, maps, params, b, hh, w2)})
-    emit({"phase": "tail", "rule": f"K5: bit-equal to its plain version and to K1 interleaved; K6: mean abs "
-          f"<= {TAIL_MEAN}, max abs <= {TAIL_MAX}, share above 1e-4 <= {TAIL_OFF_SHARE}",
-          "shapes": rows, "per_forward": total})
+    emit({"phase": "tail", "rule": f"K5: bit-equal to its plain version, to K1 interleaved and (bf16 raw) to "
+          f"itself on the f32 copy; K6: mean abs <= {TAIL_MEAN}, max abs <= {TAIL_MAX}, share above 1e-4 <= "
+          f"{TAIL_OFF_SHARE}", "shapes": rows, "per_forward": total,
+          "device_kernels_per_bf16_k5_call": k5_kernels})
     return total
 
 
@@ -941,23 +1030,30 @@ def phase_slice(card: str) -> int:
     return launches
 
 
-def phase_slice_tail(card: str) -> dict:
-    """Serving with --fused_tail always: 3 K5 + 1 K6 and no K1 per forward,
-    against use_pallas="never" on the same path and against the literal tail
-    (fused_tail="auto"); both paths timed in turns."""
+def tail_serving(dt: str):
+    """slice_tail's serving config in compute dtype ``dt`` (DenseNet-161,
+    bts_size 512, 352x1216, seed 0, --fused_tail always) and its b1 batch."""
     from bts_tpu_torch.config import Config
-    from bts_tpu_torch.models.bts import create_model
-    from bts_tpu_torch.ops import tail_cuda
-    from bts_tpu_torch.ops.lpg_cuda import fused_denominator, lpg_fused
 
     rng = np.random.default_rng(0)
     batch = {"image": rng.integers(0, 256, (1, H, W, 3), dtype=np.uint8),
              "focal": np.array([FOCAL], np.float32)}
+    return Config(mode="test", encoder="densenet161_bts", bts_size=512, max_depth=MAX_DEPTH, dataset="kitti",
+                  input_height=H, input_width=W, compute_dtype=dt, seed=0, fused_tail="always"), batch
+
+
+def phase_slice_tail(card: str) -> dict:
+    """Serving with --fused_tail always: 3 K5 + 1 K6 and no K1 per forward,
+    against use_pallas="never" on the same path and against the literal tail
+    (fused_tail="auto"); both paths timed in turns."""
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.ops import tail_cuda
+    from bts_tpu_torch.ops.lpg_cuda import fused_denominator, lpg_fused
+    from bts_tpu_torch.utils.profiling import launched_kernels
+
     focal_scale = FOCAL / 715.0873
-    cfgs = {dt: Config(mode="test", encoder="densenet161_bts", bts_size=512, max_depth=MAX_DEPTH,
-                       dataset="kitti", input_height=H, input_width=W, compute_dtype=dt, seed=0,
-                       fused_tail="always")
-            for dt in ("float32", "bfloat16")}
+    cfgs = {dt: tail_serving(dt)[0] for dt in ("float32", "bfloat16")}
+    batch = tail_serving("float32")[1]
     models = {dt: create_model(cfg, "cuda") for dt, cfg in cfgs.items()}
     heads = _heads(*models.values())
     counters = {"lpg_fused": lpg_fused, "lpg_phase_planes": tail_cuda.lpg_phase_planes,
@@ -976,6 +1072,17 @@ def phase_slice_tail(card: str) -> dict:
         n = {k: v - before[k] for k, v in counts().items()}
         check(n == {"lpg_fused": 0, "lpg_phase_planes": 3, "fused_tail": 1}, f"{dt}: launches {n}")
     launches = counts()
+
+    # the device kernels of one bf16 fused-tail forward: under each K5 op its
+    # kernel alone (no cast of the bf16 raw), under the K6 op K6's
+    prof = launched_kernels(lambda: _forward(cfgs["bfloat16"], models["bfloat16"], batch),
+                            ("bts_tpu_torch::lpg_phase_planes", "bts_tpu_torch::fused_tail"))
+    prof = {"device_kernels": len(prof.pop("kernels")), **prof}
+    emit({"phase": "slice_tail_kernels", "compute_dtype": "bfloat16", "card": card, **prof})
+    k5, k6 = prof["by_op"].values()
+    check(len(k5) == 3 and all(len(ks) == 1 and "lpg_phase_kernel" in ks[0] for ks in k5)
+          and len(k6) == 1 and len(k6[0]) == 1 and "fused_tail_kernel" in k6[0][0],
+          f"bf16 fused-tail forward: K5 and K6 ops launched {prof['by_op']}")
 
     for dt, cfg in cfgs.items():
         model, (fused, raw_heads) = models[dt], outs[dt]
@@ -1234,9 +1341,9 @@ def phase_train(card: str) -> dict:
 def profile_steps(trainer, batch, steps: int = 2) -> dict:
     """A profiled window of ``steps`` training steps: the device busy share
     and the kernels that take the time."""
-    from torch.profiler import ProfilerActivity, profile
+    from bts_tpu_torch.utils.profiling import window
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with window() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             trainer.train_step(batch)
@@ -2452,10 +2559,11 @@ def main() -> int:
     check(len(k6["hmma_instructions"]) == 2 and all(n > 0 for n in k6["hmma_instructions"].values()),
           f"fused_tail_kernel without HMMA instructions: {k6['hmma_instructions']}")
 
-    phase_kernel(card)
+    floors = phase_floor(card)
+    phase_kernel(card, floors)
     per_step = phase_kernel_bwd(card)
-    per_op, op_launches = phase_kernel_lpg(card)
-    per_tail = phase_tail(card, clocks_lib)
+    per_op, op_launches = phase_kernel_lpg(card, floors)
+    per_tail = phase_tail(card, clocks_lib, floors)
     serve_launches = phase_slice(card)
     tail_launches = phase_slice_tail(card)
     train_rec, kitti_model = phase_train(card)
@@ -2507,7 +2615,8 @@ def main() -> int:
                        "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
                        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
-                       "per": t["per"]})
+                       "per": t["per"], **{key: t[key] for key in ("kernel_only_ms", "share_of_bound", "floor_ms")
+                                           if key in t}})
     emit({"kernels": result})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

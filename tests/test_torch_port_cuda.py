@@ -52,14 +52,14 @@ def _assert_rule(out, ref, raw, k):
 
 
 @pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (4, 88, 304, 1), (2, 176, 608, 1), (8, 13, 37, 2),
-                                     (2, 13, 37, 2), (2, 176, 352, 16), (8, 52, 68, 4), (4, 104, 136, 4),
-                                     (2, 208, 272, 4), (2, 187, 621, 1)])
+                                     (2, 13, 37, 2), (8, 44, 88, 16), (4, 88, 176, 16), (2, 176, 352, 16),
+                                     (8, 52, 68, 4), (4, 104, 136, 4), (2, 208, 272, 4), (2, 187, 621, 1)])
 def test_kernel_matches_plain(card, k, h, w, b):
-    """K1 at the serving heads, a ragged B=2 at k = 8 and at k = 2 (odd w: a
-    row pitch of 2 mod 4 floats), the largest config-4 head (16,896 work
-    items, more than the card holds warps at once), the three config-3 heads
-    (NYU 416x544, b4), and the k = 2 head of a raw 374x1242 KITTI frame at
-    b1 (odd w)."""
+    """K1 at the serving heads (b1: their rows split among warps), a ragged
+    B=2 at k = 8 and at k = 2 (odd w: a row pitch of 2 mod 4 floats), the
+    three config-4 heads (the largest: 16,896 work items, more than the
+    card holds warps at once), the three config-3 heads (NYU 416x544, b4),
+    and the k = 2 head of a raw 374x1242 KITTI frame at b1 (odd w)."""
     raw = _raw(card, b, h, w, seed=k)
     out = lpg_cuda.lpg_fused(raw, k)
     torch.cuda.synchronize()
@@ -176,9 +176,12 @@ def _plane_den(plane, k):
             + p[..., 1][:, :, None, :, None] * off.view(1, 1, k, 1, 1) + p[..., 2][:, :, None, :, None])
 
 
-@pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (2, 176, 608, 1), (8, 13, 37, 2)])
+@pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (4, 88, 304, 1), (2, 176, 608, 1), (8, 13, 37, 2),
+                                     (2, 13, 37, 2), (8, 44, 88, 16), (4, 88, 176, 16), (2, 176, 352, 16)])
 def test_lpg_plane_kernels_match_plain(card, k, h, w, b, monkeypatch):
-    """K3 and K4 through the public op's autograd Function, f32 plane."""
+    """K3 and K4 through the public op's autograd Function, f32 plane, at
+    the b1 serving heads (split launches), the ragged shapes (k = 2 with
+    odd w) and the config-4 heads."""
     for fn in (lpg_cuda.lpg_plane, lpg_cuda.lpg_plane_bwd):
         monkeypatch.setattr(fn, "launches", 0)
     plane = _plane(card, b, h, w, seed=k).requires_grad_()
@@ -210,14 +213,88 @@ def test_lpg_plane_backward_returns_bf16_for_bf16(card):
                                atol=2e-5 * ref.float()[cells].abs().max().item())
 
 
-@pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (4, 88, 304, 1), (2, 176, 608, 1), (8, 13, 37, 2)])
-def test_phase_kernel_is_k1_interleaved(card, k, h, w, b):
-    raw = _raw(card, b, h, w, seed=k)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,h,w,b", [(8, 44, 152, 1), (4, 88, 304, 1), (2, 176, 608, 1), (8, 44, 152, 4),
+                                     (2, 176, 608, 4), (8, 13, 37, 2), (4, 13, 37, 2), (2, 13, 37, 2)])
+def test_phase_kernel_is_k1_interleaved(card, k, h, w, b, dtype):
+    """K5 at the serving heads, two b4 export heads and the ragged shapes
+    (k = 4 and k = 2 with odd w: phase rows of 2 mod 4 floats and of an odd
+    count), on f32 and on bf16 raw read as it is: bit for bit K1
+    interleaved, its plain version and, for bf16, K5 on the f32 copy."""
+    raw = _raw(card, b, h, w, seed=k, dtype=dtype)
     ph = tail_cuda.lpg_phase_planes(raw, k)
     torch.cuda.synchronize()
-    assert ph.shape == (b, 4, h * k // 2, w * k // 2)
+    assert ph.shape == (b, 4, h * k // 2, w * k // 2) and ph.dtype == torch.float32
     assert torch.equal(tail_cuda.interleave2x2(ph), lpg_cuda.lpg_fused(raw, k))
     assert torch.equal(ph, tail_cuda.lpg_phase_planes_plain(raw, k))
+    assert torch.equal(ph, tail_cuda.lpg_phase_planes(raw.float(), k))
+
+
+@pytest.mark.parametrize("k,h,w", [(8, 44, 152), (4, 88, 304), (2, 176, 608), (8, 13, 37), (2, 13, 37)])
+def test_split_launch_gives_the_unsplit_map(card, k, h, w):
+    """K1 and K3 split a cell row's k rows among warps where the grid is
+    small (a b1 serving head) and not where it is large: the b1 map equals,
+    bit for bit, each image of a b16 batch of the same frame (a stride-0
+    view, an unsplit launch on this card when the b1 launch splits)."""
+    from bts_tpu_torch.ops.lpg import plane_from_spherical
+
+    raw = _raw(card, 1, h, w, seed=k)
+    plane = plane_from_spherical(raw, 80.0)
+    for kernel, fn, x in (("K1", lpg_cuda.lpg_fused, raw), ("K3", lpg_cuda.lpg_plane_fwd, plane)):
+        one, batch = fn(x, k), fn(x.expand(16, *x.shape[1:]), k)
+        torch.cuda.synchronize()
+        assert torch.equal(batch[0], one[0]) and torch.equal(batch[15], one[0]), kernel
+    small, large = lpg_cuda.launch_shape("K1", 1, h, w, k), lpg_cuda.launch_shape("K1", 16, h, w, k)
+    assert small["items"] == small["warps_per_cell_row"] * h * -(-w * k // 128)
+    assert large["warps_per_cell_row"] <= small["warps_per_cell_row"]
+
+
+def test_launch_rule_on_the_h100(card):
+    """On a 132-SM card: the b1 serving head at k = 8 splits its rows (4
+    warps per cell row, in blocks of 4 warps), the k = 4 and k = 2 heads do
+    not; the config-4 (b16) and config-3 (b4) heads keep one warp per cell
+    row and 8 per block, as before the split; K5 gives each warp one phase
+    row."""
+    if torch.cuda.get_device_properties(card).multi_processor_count != 132:
+        pytest.skip("the rule's outcome is stated for 132 SMs")
+    serving = [(1, 44, 152, 8), (1, 88, 304, 4), (1, 176, 608, 2)]
+    for (b, h, w, k), split in zip(serving, (4, 1, 1)):
+        got = lpg_cuda.launch_shape("K1", b, h, w, k)
+        assert (got["warps_per_cell_row"], got["warps_per_block"]) == (split, 4 if split > 1 else 8)
+        assert lpg_cuda.launch_shape("K5", b, h, w, k)["warps_per_cell_row"] == k // 2
+    for b, h, w, k in [(16, 44, 88, 8), (16, 88, 176, 4), (16, 176, 352, 2),
+                       (4, 52, 68, 8), (4, 104, 136, 4), (4, 208, 272, 2)]:
+        items = b * h * -(-w * k // 128)
+        assert lpg_cuda.launch_shape("K1", b, h, w, k) == {
+            "warps_per_cell_row": 1, "warps_per_block": 8, "blocks": -(-items // 8), "items": items}
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lpg_cuda._lib().lpg_empty_launch(0, 1, 44, 152, 8, stream) == 0
+    assert lpg_cuda._lib().lpg_empty_launch(1, 1, 44, 152, 8, stream) == 0
+    torch.cuda.synchronize()
+
+
+def test_bf16_fused_tail_forward_launches_no_cast(card):
+    """A bf16 decoder forward on the fused tail launches 3 K5 and 1 K6, and
+    under each K5 op (its CPU subtree, torch.profiler) its kernel alone: K5
+    reads the bf16 raw as it is, no cast kernel before it."""
+    from bts_tpu_torch.cli.bts_test import predict
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.utils.profiling import launched_kernels
+
+    cfg = Config(mode="test", encoder="mobilenetv2_bts", dataset="kitti", input_height=32, input_width=64,
+                 batch_size=1, compute_dtype="bfloat16", fused_tail="always", bts_size=512)
+    model = create_model(cfg, card)
+    batch = {"image": np.random.default_rng(0).integers(0, 256, (1, 32, 64, 3), dtype=np.uint8),
+             "focal": np.array([721.5377], np.float32)}
+
+    got = launched_kernels(lambda: next(predict(cfg, model, [batch], card)),
+                           ("bts_tpu_torch::lpg_phase_planes", "bts_tpu_torch::fused_tail"))
+    k5, k6 = got["by_op"].values()
+    assert len(k5) == 3 and all(len(ks) == 1 and "lpg_phase_kernel" in ks[0] for ks in k5), k5
+    assert len(k6) == 1 and len(k6[0]) == 1 and "fused_tail_kernel" in k6[0][0], k6
+    device = got["kernels"]
+    assert sum("lpg_phase_kernel" in n for n in device) == 3 and sum("fused_tail_kernel" in n for n in device) == 1
 
 
 def _tail_inputs(card, b, hh, w2, seed, dtype=torch.float32, x_scale=0.3):

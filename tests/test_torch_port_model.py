@@ -298,8 +298,9 @@ PORT_MODULES = (
     "bts_tpu_torch.ops.silog", "bts_tpu_torch.data.augment",
     "bts_tpu_torch.utils.weights", "bts_tpu_torch.utils.torch_converter",
     "bts_tpu_torch.utils.checkpoint", "bts_tpu_torch.utils.summary", "bts_tpu_torch.utils.preemption",
+    "bts_tpu_torch.utils.profiling",
     "bts_tpu_torch.training.optimizer", "bts_tpu_torch.training.trainer",
-    "bts_tpu_torch.cli.bts_test", "bts_tpu_torch.tools.lpg_launch_shapes",
+    "bts_tpu_torch.cli.bts_test", "bts_tpu_torch.tools.lpg_launch_shapes", "bts_tpu_torch.tools.phase_ab",
     "bts_tpu_torch.evaluation", "bts_tpu_torch.evaluation.metrics", "bts_tpu_torch.evaluation.best",
     "bts_tpu_torch.models.encoders.resnet", "bts_tpu_torch.models.encoders.mobilenetv2",
     "bts_tpu_torch.utils.serving", "bts_tpu_torch.cli.bts_export", "bts_tpu_torch.cli.bts_convert",
