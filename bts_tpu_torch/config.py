@@ -90,7 +90,7 @@ class Config:
     compute_dtype: str = "bfloat16"  # forward/backward compute dtype
     use_pallas: str = "auto"  # auto | always | never: the hand-written kernels or their plain versions
     fused_tail: str = "auto"  # auto | always | never; auto = the literal decoder tail
-    upconv_bwd: str = "auto"  # parsed for arg-file compatibility; the port has one UpConv lowering
+    upconv_bwd: str = "auto"  # parsed for arg-file compatibility: the port's one UpConv backward is autograd's, the counterpart of "dilated" (the literal custom VJP exists in the JAX package only for GSPMD's spatial sharding)
     encoder_pad: str = "auto"  # auto | same | torch; stride-2 window alignment in the encoder — torchvision weights (--pretrained_model) need "torch" or they land one pixel off at every downsampling stage; "auto" = torch when --pretrained_model is set (recorded in the run's config sidecar so test/eval restore matches), else TF-SAME
     use_native_loader: str = "auto"  # auto | always | never (C++ decode path)
     shard_opt_state: bool = False  # ZeRO-1 optimizer-state sharding

@@ -81,11 +81,14 @@ class BtsDecoder(nn.Module):
         use_pallas: str = "auto",
         lane_pad: int = 0,
         fused_tail: str = "auto",
+        fused_upconv: bool = True,
     ):
         """``use_pallas`` keeps the config's name for the kernel switch:
         "auto" and "always" take the Hopper kernels (K1/K2, and K5/K6 on the
         fused tail), "never" their plain PyTorch versions.  ``fused_tail``:
-        see the module docstring."""
+        see the module docstring.  ``fused_upconv``: the five UpConvs in
+        their fused form (the default, as in the JAX package) or the literal
+        one (``layers.UpConv``)."""
         super().__init__()
         if fused_tail not in FUSED_TAIL_CHOICES:
             raise ValueError(f"fused_tail must be one of {FUSED_TAIL_CHOICES}, got {fused_tail!r}")
@@ -101,10 +104,10 @@ class BtsDecoder(nn.Module):
         self.num_features = num_features
         self.use_pallas = use_pallas
         self.fused_tail = fused_tail
-        self.upconv5 = UpConv(cb, nf, dt)
+        self.upconv5 = UpConv(cb, nf, dt, fused_upconv)
         self.bn5 = BatchNorm(nf)
         self.conv5 = ConvBlock(nf + c16, nf, dtype=dt)
-        self.upconv4 = UpConv(nf, nf // 2, dt)
+        self.upconv4 = UpConv(nf, nf // 2, dt, fused_upconv)
         self.bn4 = BatchNorm(nf // 2)
         self.conv4 = ConvBlock(nf // 2 + c8, nf // 2, dtype=dt)
         self.bn4_2 = BatchNorm(nf // 2)
@@ -116,15 +119,15 @@ class BtsDecoder(nn.Module):
         self.daspp_24 = AtrousConv(cc4 + 4 * co, co, 24, dtype=dt)
         self.daspp_conv = ConvBlock(nf // 2 + 5 * co, co, dtype=dt)
         self.reduc8x8 = Reduction1x1(co, nf // 4, dtype=dt)
-        self.upconv3 = UpConv(co, nf // 4, dt)
+        self.upconv3 = UpConv(co, nf // 4, dt, fused_upconv)
         self.bn3 = BatchNorm(nf // 4)
         self.conv3 = ConvBlock(nf // 4 + c4 + 1, nf // 4, dtype=dt)
         self.reduc4x4 = Reduction1x1(nf // 4, nf // 8, dtype=dt)
-        self.upconv2 = UpConv(nf // 4, nf // 8, dt)
+        self.upconv2 = UpConv(nf // 4, nf // 8, dt, fused_upconv)
         self.bn2 = BatchNorm(nf // 8)
         self.conv2 = ConvBlock(nf // 8 + c2 + 1, nf // 8, dtype=dt)
         self.reduc2x2 = Reduction1x1(nf // 8, nf // 16, dtype=dt)
-        self.upconv1 = UpConv(nf // 8, nf // 16, dt)
+        self.upconv1 = UpConv(nf // 8, nf // 16, dt, fused_upconv)
         self.reduc1x1 = Reduction1x1(nf // 16, nf // 32, is_final=True, dtype=dt)
         # depth_1x1 has one channel, or nf // 16 where reduc1x1 passes through
         self.conv1 = ConvBlock(nf // 16 + self.reduc1x1.out_channels + 3, nf // 16, dtype=dt)

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from bts_tpu_torch.ops.resize import upsample_nearest_2x
+from bts_tpu_torch.ops.resize import fold_up2x_kernel, upsample_nearest_2x
 
 BN_EPS = 1.1e-5
 BN_MOMENTUM = 0.99  # flax's: running = 0.99 * running + 0.01 * batch
@@ -192,19 +192,86 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def _phase_conv_transpose_2x(x, weight, bias):
+    """``F.conv_transpose2d(x, weight, bias, stride=2, padding=1)`` for a
+    4x4 ``weight`` (cin, cout, 4, 4) as one stride-1 2x2 conv with a block
+    of cout channels per output phase, then an interleave.  Output pixel
+    (2m + p, 2n + q) takes taps p, p + 2 (rows) and q, q + 2 (columns) of
+    the flipped kernel over input rows m - 1 + p, m + p and columns
+    n - 1 + q, n + q: the phase block of the conv over the input padded by
+    one, read at (m + p, n + q)."""
+    b, _, h, w = x.shape
+    k = weight.flip(-2, -1).transpose(0, 1)  # (cout, cin, 4, 4)
+    cout = k.shape[0]
+    phases = torch.cat([k[:, :, p::2, q::2] for p in (0, 1) for q in (0, 1)])  # (4 cout, cin, 2, 2)
+    y = F.conv2d(F.pad(x, (1, 1, 1, 1)), phases, bias.repeat(4)).view(b, 2, 2, cout, h + 1, w + 1)
+    out = y.new_empty(b, cout, 2 * h, 2 * w)
+    for p in (0, 1):
+        for q in (0, 1):
+            out.view(b, cout, h, 2, w, 2)[:, :, :, p, :, q] = y[:, p, q, :, p:p + h, q:q + w]
+    return out
+
+
+class _DeterministicUpConvT(torch.autograd.Function):
+    """The fused UpConv's stride-2 transposed conv (padding 1) with a
+    forward that repeats bit for bit on a card: computed by
+    :func:`_phase_conv_transpose_2x`, whose conv takes cuDNN's forward
+    algorithms.  The backward is the transposed conv's own
+    (``aten.convolution_backward``), as autograd of ``F.conv_transpose2d``
+    would run it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        return _phase_conv_transpose_2x(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        return torch.ops.aten.convolution_backward(
+            grad, x, weight, [weight.shape[1]], [2, 2], [1, 1], [1, 1], True, [0, 0], 1,
+            list(ctx.needs_input_grad))
+
+
 class UpConv(nn.Module):
     """Nearest x2 upsample -> 3x3 SAME conv -> ELU (reference ``upconv``).
 
-    The JAX package fuses the two into one lhs-dilated conv by default; this
-    is the literal form (``layers.py::_up2x_conv_literal``), the same
-    function.  A fused form is later work."""
+    ``fused=True`` (the default, as in the JAX package) computes the same
+    function without the upsampled tensor: the 3x3 kernel folded over the
+    upsample (``ops/resize.py::fold_up2x_kernel``, f32 tap sums rounded to
+    the compute dtype once) in one stride-2 transposed conv, the
+    counterpart of ``bts_tpu/models/layers.py::_up2x_conv_dilated``.  Its
+    autograd backward stays at the input's resolution too, as the JAX
+    default ``upconv_bwd="dilated"`` does.  ``fused=False`` is the literal
+    two-op form (``_up2x_conv_literal``).  Either way the parameters are
+    ``conv.weight`` (cout, cin, 3, 3) and ``conv.bias``.
 
-    def __init__(self, in_channels: int, features: int, dtype=torch.float32):
+    ``deterministic`` (set for f32): the forward repeats bit for bit
+    (``_DeterministicUpConvT``).  On an H100 cuDNN's f32 algorithm for the
+    transposed conv sums in an order that varies between calls, and its
+    deterministic ones take up to 7.7x as long; its bf16 forward repeats,
+    and bf16 keeps it.  The backward, like every conv's backward, takes
+    cuDNN's default algorithms."""
+
+    def __init__(self, in_channels: int, features: int, dtype=torch.float32, fused: bool = True):
         super().__init__()
         self.conv = ConvBlock(in_channels, features, 3, dtype=dtype)
+        self.fused = fused
+        self.deterministic = dtype == torch.float32
 
     def forward(self, x):
-        return self.conv(upsample_nearest_2x(x))
+        if not self.fused:
+            return self.conv(upsample_nearest_2x(x))
+        conv = self.conv
+        # conv3x3_SAME(up2x(x), K) == conv_transpose2d(x, flip(K''), stride 2, padding 1),
+        # the transposed conv's weight being (cin, cout, 4, 4)
+        weight = fold_up2x_kernel(conv.weight).to(conv.dtype).transpose(0, 1).flip(-2, -1)
+        x, bias = x.to(conv.dtype), conv.bias.to(conv.dtype)
+        if self.deterministic:
+            y = _DeterministicUpConvT.apply(x, weight, bias)
+        else:
+            y = F.conv_transpose2d(x, weight, bias, stride=2, padding=1)
+        return conv.act(y)
 
 
 class AtrousConv(nn.Module):

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from bts_tpu_torch.ops import _build, lpg_cuda
 from bts_tpu_torch.ops.lpg_cuda import _check_raw, _stream, lpg_fused_plain
+from bts_tpu_torch.ops.resize import fold_up2x_kernel
 
 CIN = 64  # iconv2 channels: bts_size 512
 PARAM_BYTES = 92688  # bytes of pack_tail_params' buffer (fused_tail.cu's PARAM_BYTES)
@@ -127,13 +128,9 @@ def _elu(x: torch.Tensor) -> torch.Tensor:
 def _folded_upconv(kernel: torch.Tensor) -> torch.Tensor:
     """The 3x3 upconv kernel (3, 3, 64, 32) folded over the nearest-2x
     upsample: K4 = K (*) ones(2, 2), (4, 4, 64, 32), summed in f32 in the JAX
-    package's order and rounded to bf16 once."""
-    k = kernel.float()
-    k4 = torch.zeros((4, 4) + tuple(k.shape[2:]), dtype=torch.float32, device=k.device)
-    for u in (0, 1):
-        for v in (0, 1):
-            k4[u:u + 3, v:v + 3] += k
-    return _bf(k4)
+    package's order (``ops/resize.py::fold_up2x_kernel``, which the fused
+    ``UpConv`` uses too) and rounded to bf16 once."""
+    return _bf(fold_up2x_kernel(kernel.permute(2, 3, 0, 1)).permute(2, 3, 0, 1))
 
 
 def _phase_taps(k4: torch.Tensor, py: int, pz: int) -> torch.Tensor:

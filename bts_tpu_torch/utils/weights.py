@@ -65,6 +65,15 @@ def load_state_dict(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor])
     model.load_state_dict(sd, strict=True)
 
 
+ORBAX_MARKER = "_CHECKPOINT_METADATA"  # in each step directory of an orbax checkpoint
+
+
+def orbax_steps(directory: str) -> list:
+    """The steps of a ``bts_tpu`` (orbax) checkpoint directory, oldest first."""
+    return sorted(int(n) for n in os.listdir(directory)
+                  if n.isdigit() and os.path.isfile(os.path.join(directory, n, ORBAX_MARKER)))
+
+
 def read_weights(path: str) -> Tuple[dict, Optional[int]]:
     """The model weights at ``path`` and their step: the latest step of a
     checkpoint directory, a trainer file ``{"model", "optimizer",
@@ -72,8 +81,16 @@ def read_weights(path: str) -> Tuple[dict, Optional[int]]:
     a bare ``state_dict`` (step None).  A missing path or a directory
     without a checkpoint raises FileNotFoundError.  Read on the CPU: a
     trainer file's optimizer state never reaches the card, and
-    ``load_state_dict`` copies the weights into the model's device."""
+    ``load_state_dict`` copies the weights into the model's device.  A
+    ``bts_tpu`` (orbax) checkpoint raises ValueError naming the tool that
+    converts it."""
     if os.path.isdir(path):
+        if os.path.isfile(os.path.join(path, ORBAX_MARKER)) or orbax_steps(path):
+            raise ValueError(
+                f"{path} is a bts_tpu (orbax) checkpoint; convert it first: python -m "
+                f"bts_tpu_torch.tools.from_orbax --checkpoint_path {path} --encoder ... "
+                "--bts_size ... --out <dir>, then pass --checkpoint_path <dir>"
+            )
         state = CheckpointManager(path).restore()
     else:
         state = torch.load(path, map_location="cpu", weights_only=True)

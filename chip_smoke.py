@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (the literal and the fused decoder
-tail), its training paths (config 4 and config 3, config 4 also under
+tail), the decoder's UpConvs in both forms, its training paths (config 4 and config 3, config 4 also under
 torch.distributed and fed from each input loader), the other encoders, the
 evaluation entry points, the serving entry points (convert, export, HTTP,
 sequence) and its public LPG op once on one NVIDIA GPU and check them.
@@ -73,14 +73,39 @@ Phases, one JSON line each, then the result:
                 SM cycles per block in each stage (staging, upconv,
                 reduction chain, iconv1, final conv) from the profiling
                 build.
-8. slice      - serving: create_model + bts_test.predict, DenseNet-161,
+8. upconv     - the five UpConvs of DenseNet-161 BTS (bts_size 512) at the
+                b1 352x1216 serving shapes and the b16 352x704 config-4
+                shapes, f32 and bf16: the fused form (one stride-2
+                transposed conv with the folded 4x4 kernel, the default)
+                against the literal one (nearest-2x upsample, then the 3x3
+                conv) on the same weights, input and cotangent: rule
+                max|fused - literal| <= 2e-5 (f32), 2^-6 (bf16) of
+                max|literal| in the forward, and |g_fused - g_literal| <=
+                1e-4 (f32), 2^-6 (bf16) of |g_literal| for the gradients of
+                x, the weight and the bias; device ms of each form's
+                forward and of its backward alone (CUDA events, batches
+                queued behind a sleep kernel), 4 batches of each in turns;
+                each form's peak memory of a forward and backward above
+                its inputs; each form's MACs; the largest difference
+                between two forwards, and between two backwards, of one
+                form on one input: the fused forward must repeat bit for
+                bit (in f32 it runs as one phase conv, the port's
+                UpConv.deterministic); in f32 also the fused form on
+                cuDNN's transposed-conv algorithm, which does not repeat,
+                timed beside it.
+9. slice      - serving: create_model + bts_test.predict, DenseNet-161,
                 bts_size 512, 352x1216, batch 1, KITTI focal, seeded
                 weights, float32 and bfloat16; 3 K1 launches per forward;
                 outputs finite where the LPG denominators are non-zero;
                 depth in (0, max_depth]; the kernel path against
                 use_pallas="never"; the f32 model against the same weights on
-                the CPU at 64x96; median ms per forward and peak memory.
-9. slice_tail - the same serving with --fused_tail always: 3 K5 + 1 K6 and
+                the CPU at 64x96; median ms per forward and peak memory; the
+                literal UpConv form on the same weights: the final depth's
+                gap to the fused default, the device kernels of one forward
+                of each form (torch.profiler), each form's peak memory and
+                6 forwards of each in turns (f32: also the fused form on
+                cuDNN's transposed-conv algorithm).
+10. slice_tail - the same serving with --fused_tail always: 3 K5 + 1 K6 and
                 no K1 per forward; the device kernels of one bf16 forward
                 (torch.profiler): their count, and under each K5 and K6 op
                 that kernel alone (no cast); finite outputs, depth in
@@ -90,7 +115,7 @@ Phases, one JSON line each, then the result:
                 (fused_tail="auto": maps <= 1e-5, d1x1 <= 5e-3, final
                 <= 5e-3*max_depth); 20 forwards of each path in turns
                 (median, q1, q3) and each path's peak memory.
-10. train     - config 4 (DenseNet-161, bts_size 512, KITTI 352x1216 uint8
+11. train     - config 4 (DenseNet-161, bts_size 512, KITTI 352x1216 uint8
                 frames augmented to 352x704 with rotation <= 1 degree, b16,
                 bfloat16, remat 'layer', AdamW + poly decay) through
                 create_model + training.Trainer on seeded synthetic data
@@ -104,9 +129,11 @@ Phases, one JSON line each, then the result:
                 loss and gradients, BN running statistics that moved, ms per
                 step, images/s, peak memory; then 8 steps of each path
                 (kernel, use_pallas="never") in turns, with each path's peak
-                memory; a torch.profiler window of 2 steps for the device
-                busy share and the top kernels.
-11. train_ddp - config 4 under torch.distributed.  (a) bts_main
+                memory; then 4 steps of each UpConv form (fused, literal)
+                in turns, with each form's peak memory; a torch.profiler
+                window of 2 steps for the device busy share and the top
+                kernels.
+12. train_ddp - config 4 under torch.distributed.  (a) bts_main
                 (@arguments/arguments_train_eigen.txt: DenseNet-161, b16,
                 bf16, remat 'layer') through python -m torch.distributed.run
                 --nproc_per_node 1, NCCL, on a synthetic KITTI tree of 16
@@ -126,17 +153,17 @@ Phases, one JSON line each, then the result:
                 ms per step at b16 (2 x b8, bf16), 3 K1 + 3 K2 per step per
                 rank.  The ranks are this script (train_ddp_rank); a failed
                 rank fails the phase.
-12. kernel_nyu - K1 and K2 at the three config-3 heads (NYU 416x544, b4)
+13. kernel_nyu - K1 and K2 at the three config-3 heads (NYU 416x544, b4)
                 and K1 at the three heads of a NYU online eval (480x640, b4),
                 f32 and bf16 raw, by the rules and with the columns of
                 kernel_bwd; the per-step sums of config 3.
-13. encoders  - ResNet-50/101, ResNeXt-50/101 and MobileNetV2 serving at
+14. encoders  - ResNet-50/101, ResNeXt-50/101 and MobileNetV2 serving at
                 352x1216 b1 (bts_size 512, seeded weights): one f32 forward
                 with 3 K1 launches against use_pallas="never" (maps by K1's
                 rule, final rtol 1e-5) and against the CPU at 64x96 (rtol
                 2e-4, atol 2e-4*max|ref|); median ms of 5 bf16 forwards and
                 the peak memory.
-14. train_nyu - config 3 (ResNeXt-101, NYU 480x640 frames border-cropped to
+15. train_nyu - config 3 (ResNeXt-101, NYU 480x640 frames border-cropped to
                 427x565 and augmented to 416x544 with rotation <= 2.5
                 degrees, depth in [0.2, 9.5) m, b4, bf16, no remat, AdamW lr
                 1e-4, wd 1e-2, eps 1e-3) through create_model + Trainer, by
@@ -148,7 +175,7 @@ Phases, one JSON line each, then the result:
                 2 warm-up and 10 timed b4 bf16 steps (3 K1 and 3 K2
                 launches each): ms per step, images/s, peak memory; a
                 torch.profiler window of 2 steps (busy share, top kernels).
-15. eval      - the entry points on a synthetic NYU tree of 10 frames at
+16. eval      - the entry points on a synthetic NYU tree of 10 frames at
                 480x640: bts_main with the config-3 recipe
                 (arguments/arguments_train_nyu.txt, ResNeXt-101, b4) for 4
                 steps with --do_online_eval --eval_freq 2 (3 K1 launches per
@@ -162,7 +189,7 @@ Phases, one JSON line each, then the result:
                 eval (KB crop, garg crop, padded back to 375x1242) of the
                 config-4 state from phase 10 over 20 frames at b16: finite,
                 3 K1 launches per batch forward, images/s.
-16. serving   - DenseNet-161, bts_size 512, KITTI, seeded weights, f32:
+17. serving   - DenseNet-161, bts_size 512, KITTI, seeded weights, f32:
                 an upstream-style full .pth ({"model": module.encoder.
                 base_model.* / module.decoder.*}) through bts_convert, read
                 back by read_weights equal to the source; bts_export at
@@ -186,7 +213,7 @@ Phases, one JSON line each, then the result:
                 2): 3 K1 per batch forward, each PNG within 1 unit of
                 bts_test's for the same frame, through the kernels and
                 through --use_pallas never; frames/s.
-17. input     - the input plane at config-4 width.  A leg this machine
+18. input     - the input plane at config-4 width.  A leg this machine
                 cannot run (the native library does not build: no libpng/
                 libjpeg headers; no array_record package) is named on its
                 own line with the reason, first.  (a) 16 synthetic KITTI
@@ -212,7 +239,7 @@ Phases, one JSON line each, then the result:
                 one step in a subprocess with a NaN in the weight of
                 encoder.features.denseblock2.denselayer1.conv1: exits non-zero
                 with FloatingPointError naming it.
-18. result    - {"kernels": [...]}: all six kernels, launches by main path
+19. result    - {"kernels": [...]}: all six kernels, launches by main path
                 (serve, serve_tail, train, train_ddp, op, encoders,
                 train_nyu, eval, export, serve_http, sequence, input; each path's
                 counts set to 0 just before it runs), and ms,
@@ -291,6 +318,17 @@ K1_OPS_PER_PIXEL, K2_OPS_PER_PIXEL = 5, 10
 # the final conv 9*32*2
 K6_FLOPS_PER_PIXEL = 4 * 64 * 32 * 2 + (32 * 16 + 16 * 8 + 8) * 2 + 9 * 36 * 32 * 2 + 9 * 32 * 2
 K6_TILE = (8, 16)  # fused_tail.cu's output tile (phase rows, phase cols): one block each
+# the five UpConvs of DenseNet-161 BTS at bts_size 512, (cin, cout), upconv5
+# (input at H/32) .. upconv1 (input at H/2)
+UPCONV_CHANNELS = [(2208, 512), (512, 256), (128, 128), (128, 64), (64, 32)]
+UPCONV_TURNS = 4  # upconv: timed batches of each form, in turns
+# upconv: fused against literal, max|fused - literal| / max|literal| of the
+# forward and |g_fused - g_literal| / |g_literal| of each gradient (x,
+# weight, bias); bf16: the two forms round their kernels differently
+# (tests/test_torch_port_upconv.py holds the CPU to the same rule)
+UPCONV_FWD_RULE = {"float32": 2e-5, "bfloat16": 2.0**-6}
+UPCONV_GRAD_RULE = {"float32": 1e-4, "bfloat16": 2.0**-6}
+UPCONV_FORWARDS, UPCONV_STEPS = 6, 4  # slice, train: forwards / steps of each UpConv form in turns
 
 
 def emit(obj) -> None:
@@ -378,19 +416,22 @@ def device_median_ms(fn, host_ms: float, runs: int = 50, repeats: int = 7) -> fl
     outlasts their enqueueing (``host_ms`` per call, twice over at up to
     2 GHz), so the card never waits for the host between them, timed by CUDA
     events; the median over ``repeats`` such batches."""
-    sleep_cycles = int(2 * 2e6 * runs * host_ms)
     fn()
-    times = []
-    for _ in range(repeats):
-        start, end = _events()
-        torch.cuda._sleep(sleep_cycles)
-        start.record()
-        for _ in range(runs):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / runs)
-    return statistics.median(times)
+    return statistics.median(_batch_ms(fn, runs, host_ms) for _ in range(repeats))
+
+
+def _batch_ms(fn, n: int, host_ms: float) -> float:
+    """Device ms per call of ``n`` calls queued behind a sleep kernel that
+    outlasts their enqueueing (``host_ms`` per call, twice over at up to
+    2 GHz), by CUDA events."""
+    start, end = _events()
+    torch.cuda._sleep(int(2 * 2e6 * n * host_ms))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def timings(fn, plain_fn=None) -> dict:
@@ -632,12 +673,14 @@ def phase_kernel_bwd(card: str) -> dict:
     b, h, w, k = TRAIN_SHAPES[0]
     raw = _raw(b, h, w, k, torch.bfloat16)
     g = torch.ones((b, h * k, w * k), device="cuda")
-    launched = {"K1": launched_kernels(lambda: lpg_fused(raw, k))["kernels"],
-                "K2": launched_kernels(lambda: lpg_fused_bwd(raw, g, k))["kernels"]}
+    profs = {"K1": launched_kernels(lambda: lpg_fused(raw, k)),
+             "K2": launched_kernels(lambda: lpg_fused_bwd(raw, g, k))}
+    launched = {key: prof["kernels"] for key, prof in profs.items()}
     emit({"phase": "kernel_bwd",
           "rule": f"K2: rtol {GRAD_RTOL} (bf16: 2^-7), atol {GRAD_ATOL_SCALE}*max|ref| on cells "
                   f"with every |den|>={DENOM_MIN}; K1: rtol {RTOL}, atol {ATOL_SCALE}*max|ref|",
-          "shapes": rows, "per_training_step": total, "device_kernels_per_bf16_call": launched})
+          "shapes": rows, "per_training_step": total, "device_kernels_per_bf16_call": launched,
+          "profiler_windows": {key: prof["windows"] for key, prof in profs.items()}})
     for key, kernel in (("K1", "lpg_fwd_kernel"), ("K2", "lpg_bwd_kernel")):
         check(len(launched[key]) == 1 and kernel in launched[key][0],
               f"{key}'s wrapper on bf16 raw launched {launched[key]}")
@@ -868,7 +911,8 @@ def phase_tail(card: str, clocks_lib, floors: dict) -> dict:
     # bf16 raw: the wrapper launches K5 and nothing else (no cast)
     b, h, w, k = SLICE_SHAPES[0]
     raw = _raw(b, h, w, k, torch.bfloat16)
-    k5_kernels = launched_kernels(lambda: tail_cuda.lpg_phase_planes(raw, k))["kernels"]
+    k5_prof = launched_kernels(lambda: tail_cuda.lpg_phase_planes(raw, k))
+    k5_kernels = k5_prof["kernels"]
     check(len(k5_kernels) == 1 and "lpg_phase_kernel" in k5_kernels[0],
           f"K5's wrapper on bf16 raw launched {k5_kernels}")
     for b, hh, w2 in TAIL_SHAPES:
@@ -912,8 +956,150 @@ def phase_tail(card: str, clocks_lib, floors: dict) -> dict:
     emit({"phase": "tail", "rule": f"K5: bit-equal to its plain version, to K1 interleaved and (bf16 raw) to "
           f"itself on the f32 copy; K6: mean abs <= {TAIL_MEAN}, max abs <= {TAIL_MAX}, share above 1e-4 <= "
           f"{TAIL_OFF_SHARE}", "shapes": rows, "per_forward": total,
-          "device_kernels_per_bf16_k5_call": k5_kernels})
+          "device_kernels_per_bf16_k5_call": k5_kernels, "profiler_windows": k5_prof["windows"]})
     return total
+
+
+def set_upconv(model, form: str) -> None:
+    """Every UpConv of ``model`` in ``form`` (the same weights in each):
+    "fused" (the default; in f32 its forward one phase conv), "literal",
+    or "fused_default" (fused, the forward on cuDNN's transposed-conv
+    algorithm in f32 too)."""
+    from bts_tpu_torch.models.layers import UpConv
+
+    for m in model.modules():
+        if isinstance(m, UpConv):
+            m.fused = form != "literal"
+            m.deterministic = form == "fused" and m.conv.dtype == torch.float32
+
+
+def phase_upconv(card: str) -> None:
+    """The five UpConvs of DenseNet-161 BTS at the b1 352x1216 serving
+    shapes and the b16 352x704 config-4 shapes, f32 and bf16: the fused form
+    (one stride-2 transposed conv, the default) against the literal one
+    (upsample, then the 3x3 conv) on the same weights, input and cotangent:
+    the forward gap and each gradient's gap under UPCONV_FWD_RULE and
+    UPCONV_GRAD_RULE; device ms of each form's forward and backward (the
+    backward alone, the graph retained), UPCONV_TURNS batches of each in
+    turns; the peak memory of a forward and backward above its inputs; the
+    MACs of each form (9 per output pixel and input channel, or 4); how far
+    a second forward and a second backward of each form on the same input
+    land from the first.  The fused form must repeat its forward bit for
+    bit (in f32 one phase conv, UpConv.deterministic); in f32 the fused
+    form on cuDNN's transposed-conv algorithm ("fused_default", whose sums
+    vary between calls) is timed beside it, the cost of that choice.
+    Backwards are recorded, not held to repeat: every conv's backward
+    takes cuDNN's default algorithms."""
+    from bts_tpu_torch.models.bts import init_weights, set_float32_precision
+    from bts_tpu_torch.models.layers import UpConv
+
+    set_float32_precision()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for serving, (b, h, w) in (("serving b1", (1, H, W)), ("config 4 b16", (TRAIN_B, TRAIN_H, TRAIN_W))):
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            for i, (cin, cout) in enumerate(UPCONV_CHANNELS):
+                shape = (b, cin, h >> (5 - i), w >> (5 - i))
+                forms = {"fused": UpConv(cin, cout, dtype, fused=True)}
+                init_weights(forms["fused"], torch.Generator().manual_seed(i))
+                with torch.no_grad():
+                    forms["fused"].conv.bias.normal_(0, 0.05, generator=torch.Generator().manual_seed(i))
+                forms["fused"].cuda()
+                forms["literal"] = UpConv(cin, cout, dtype, fused=False).cuda()
+                if dt == "float32":
+                    forms["fused_default"] = UpConv(cin, cout, dtype, fused=True).cuda()
+                    forms["fused_default"].deterministic = False
+                for m in list(forms.values())[1:]:
+                    m.load_state_dict(forms["fused"].state_dict())
+                x = torch.randn(shape, device="cuda", generator=gen).to(dtype).requires_grad_()
+                out_shape = (b, cout, 2 * shape[2], 2 * shape[3])
+                cot = torch.randn(out_shape, device="cuda", generator=gen).to(dtype)
+                rec = {"phase": "upconv", "card": card, "shapes": serving, "upconv": 5 - i, "compute_dtype": dt,
+                       "input": list(shape), "output": list(out_shape)}
+                outs, grads, fwd, bwd = {}, {}, {}, {}
+                for name, m in forms.items():
+                    params = (x, m.conv.weight, m.conv.bias)
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    y = m(x)
+                    grads[name] = torch.autograd.grad(y, params, cot, retain_graph=True)
+                    torch.cuda.synchronize()
+                    rec[f"{name}_peak_mib_above_inputs"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+                    outs[name] = y.detach()
+                    fwd[name] = lambda m=m: m(x)
+                    bwd[name] = lambda y=y, params=params: torch.autograd.grad(y, params, cot, retain_graph=True)
+                with torch.no_grad():  # two calls of one form on one input: equal where cuDNN's sums are
+                    rec["repeat_max_abs_diff"] = {name: (m(x) - outs[name]).abs().max().item()
+                                                  for name, m in forms.items()}
+                rec["repeat_grad_max_abs_diff"] = {
+                    name: max((a - b).abs().max().item() for a, b in zip(bwd[name](), grads[name]))
+                    for name in forms}
+                scale = outs["literal"].abs().max().item()
+                rec["fwd_gap"] = (outs["fused"] - outs["literal"]).abs().max().item() / scale
+                rec["grad_gaps"] = {n: ((f.float() - g.float()).norm() / g.float().norm()).item()
+                                    for n, f, g in zip(("x", "weight", "bias"), grads["fused"], grads["literal"])}
+                rec["rule"] = {"fwd": UPCONV_FWD_RULE[dt], "grad": UPCONV_GRAD_RULE[dt]}
+                pixels = b * out_shape[1] * out_shape[2] * out_shape[3]
+                rec["gmac"] = {"fused": pixels * cin * 4 / 1e9, "literal": pixels * cin * 9 / 1e9}
+                times = {(name, part): [] for name in forms for part in ("fwd", "bwd")}
+                calls = {}
+                for (name, part) in times:
+                    fn = (fwd if part == "fwd" else bwd)[name]
+                    fn()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    host_ms = (time.perf_counter() - t0) * 1e3  # an upper bound of the enqueueing
+                    torch.cuda.synchronize()
+                    one = _batch_ms(fn, 1, host_ms)
+                    calls[(name, part)] = (max(1, min(20, int(4.0 / max(one, 1e-3)))), host_ms)
+                for turn in range(UPCONV_TURNS):
+                    for name in list(forms) if turn % 2 == 0 else list(forms)[::-1]:
+                        for part in ("fwd", "bwd"):
+                            n, host_ms = calls[(name, part)]
+                            times[(name, part)].append(
+                                _batch_ms((fwd if part == "fwd" else bwd)[name], n, host_ms))
+                for (name, part), t in times.items():
+                    rec[f"{name}_{part}_ms"] = statistics.median(t)
+                    rec[f"{name}_{part}_ms_range"] = [min(t), max(t)]
+                for part in ("fwd", "bwd"):
+                    rec[f"{part}_fused_over_literal"] = rec[f"fused_{part}_ms"] / rec[f"literal_{part}_ms"]
+                    if "fused_default" in forms:
+                        rec[f"{part}_fused_over_fused_default"] = (rec[f"fused_{part}_ms"]
+                                                                    / rec[f"fused_default_{part}_ms"])
+                emit(rec)
+                check(rec["repeat_max_abs_diff"]["fused"] == 0.0, f"upconv fused forward does not repeat {rec}")
+                check(rec["fwd_gap"] <= UPCONV_FWD_RULE[dt], f"upconv fused vs literal forward {rec}")
+                check(all(g <= UPCONV_GRAD_RULE[dt] for g in rec["grad_gaps"].values()),
+                      f"upconv fused vs literal gradients {rec}")
+                del forms, outs, grads, fwd, bwd, x, cot
+    torch.cuda.empty_cache()
+
+
+def upconv_ab(model, run, n: int, forms=("fused", "literal")) -> dict:
+    """``run`` (one synchronised forward or step of ``model``) with every
+    UpConv in each of ``forms`` (see set_upconv): each form's peak memory
+    (after one warm-up), then ``n`` runs of each in turns, the order
+    reversed every other turn: ms median, q1, q3.  Leaves the model
+    fused."""
+    rec, times = {}, {form: [] for form in forms}
+    for form in times:
+        set_upconv(model, form)
+        run()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        rec[f"{form}_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for i in range(n):
+        for form in forms if i % 2 == 0 else forms[::-1]:
+            set_upconv(model, form)
+            t0 = time.perf_counter()
+            run()
+            times[form].append((time.perf_counter() - t0) * 1e3)
+    set_upconv(model, "fused")
+    for form, t in times.items():
+        q = statistics.quantiles(t, n=4)
+        rec[f"{form}_ms"] = {"median": statistics.median(t), "q1": q[0], "q3": q[2], "n": len(t)}
+    return rec
 
 
 def _forward(cfg, model, batch):
@@ -928,6 +1114,7 @@ def phase_slice(card: str) -> int:
     from bts_tpu_torch.config import Config
     from bts_tpu_torch.models.bts import create_model
     from bts_tpu_torch.ops.lpg_cuda import fused_denominator, lpg_fused
+    from bts_tpu_torch.utils.profiling import launched_kernels
 
     rng = np.random.default_rng(0)
     batch = {"image": rng.integers(0, 256, (1, H, W, 3), dtype=np.uint8),
@@ -1024,6 +1211,20 @@ def phase_slice(card: str) -> int:
             q = statistics.quantiles(t, n=4)
             rec[f"{path}_ms_per_forward"] = {"median": statistics.median(t), "q1": q[0], "q3": q[2],
                                              "n": len(t)}
+
+        # the literal UpConv form against the fused default: the final depth's
+        # gap, each form's device kernels per forward, and forwards in turns
+        forms = ("fused", "literal") + (("fused_default",) if dt == "float32" else ())
+        up = upconv_ab(model, lambda: _forward(cfg, model, batch), UPCONV_FORWARDS, forms)
+        set_upconv(model, "literal")
+        literal = _forward(cfg, model, batch)
+        for form in ("literal", "fused"):
+            set_upconv(model, form)
+            prof = launched_kernels(lambda: _forward(cfg, model, batch))
+            up[f"device_kernels_{form}"], up[f"profiler_windows_{form}"] = len(prof["kernels"]), prof["windows"]
+        check(all(bool(torch.isfinite(o).all()) for o in literal[3:]), f"{dt}: literal UpConv: non-finite depth")
+        up["final_max_rel_gap"] = ((literal[4] - kernel_outs[4]).abs().max() / kernel_outs[4].abs().max()).item()
+        rec["upconv_fused_vs_literal"] = up
         emit(rec)
     del models
     torch.cuda.empty_cache()
@@ -1332,6 +1533,13 @@ def phase_train(card: str) -> dict:
         q = statistics.quantiles(t, n=4)
         rec[f"{path}_ms_per_step_in_turns"] = {"median": statistics.median(t), "q1": q[0],
                                                "q3": q[2], "n": len(t)}
+
+    def step():
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+
+    # the literal UpConv form against the fused default, in turns
+    rec["upconv_fused_vs_literal"] = upconv_ab(model, step, UPCONV_STEPS)
 
     rec["profile_2_steps"] = profile_steps(trainer, batch)
     emit(rec)
@@ -2564,6 +2772,7 @@ def main() -> int:
     per_step = phase_kernel_bwd(card)
     per_op, op_launches = phase_kernel_lpg(card, floors)
     per_tail = phase_tail(card, clocks_lib, floors)
+    phase_upconv(card)
     serve_launches = phase_slice(card)
     tail_launches = phase_slice_tail(card)
     train_rec, kitti_model = phase_train(card)

@@ -115,6 +115,11 @@ def _layer_cases():
             layers.UpConv(4, 6),
             conv(("ConvBlock_0", "Conv_0"), "conv"),
         ),
+        "up_conv_literal": (
+            jlayers.UpConv(6, fused=False),
+            layers.UpConv(4, 6, fused=False),
+            conv(("ConvBlock_0", "Conv_0"), "conv"),
+        ),
         "atrous_first_bn": (
             jlayers.AtrousConv(3, 6),
             layers.AtrousConv(4, 3, 6),
@@ -306,6 +311,8 @@ PORT_MODULES = (
     "bts_tpu_torch.utils.serving", "bts_tpu_torch.cli.bts_export", "bts_tpu_torch.cli.bts_convert",
     "bts_tpu_torch.parallel", "bts_tpu_torch.parallel.distributed",
     "bts_tpu_torch.data.records", "bts_tpu_torch.data.native_loader", "bts_tpu_torch.tools.make_records",
+    "bts_tpu_torch.ops.resize", "bts_tpu_torch.tools.from_orbax", "bts_tpu_torch.tools.flagship_smoke",
+    "bts_tpu_torch.tools.upconv_algos",
 )
 NEEDS_PIL = ("bts_tpu_torch.data.crops", "bts_tpu_torch.data.depth_io",
              "bts_tpu_torch.data.dataloader", "bts_tpu_torch.cli.bts_main", "bts_tpu_torch.cli.bts_eval",
