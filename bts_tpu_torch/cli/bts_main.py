@@ -25,11 +25,22 @@ is the global batch, ``--num_devices`` (-1: the world size) must match
         -m bts_tpu_torch.cli.bts_main @arguments/arguments_train_eigen.txt --shard_opt_state
 
 Every rank trains on its rows of each global batch and runs the
-visualisation forward and the online eval (the same frames on every rank);
-rank 0 alone writes the config sidecar, checkpoints, summaries, best
+visualisation forward and the online eval (the same whole frames on every
+rank); rank 0 alone writes the config sidecar, checkpoints, summaries, best
 checkpoints and the step log.  A checkpoint holds the whole state whatever
-the world size, so a run resumes at another one.  A SIGTERM stops every rank
-at the same ``--preempt_sync_freq`` step.
+the world size, so a run resumes at another one, with or without spatial
+sharding.  A SIGTERM stops every rank at the same ``--preempt_sync_freq``
+step.
+
+Spatial sharding: ``--spatial_shards N [--spatial_shards_w M]`` splits each
+frame into N x M bands over as many processes (``parallel/spatial.py``);
+the world holds D x N x M processes, the batch splits over the D data
+groups.  ``input_height`` must divide by N and ``input_width`` by M, and
+the LPG heads need ``input_height/(8*N)`` and ``input_width/(8*M)`` whole:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        -m bts_tpu_torch.cli.bts_main @arguments/arguments_train_eigen.txt \
+        --spatial_shards 2 --spatial_shards_w 2
 
 Input: a PNG-tree split file through the native C++ loader or PIL
 (``--use_native_loader auto|always|never``), or ArrayRecord shards
@@ -38,9 +49,6 @@ Input: a PNG-tree split file through the native C++ loader or PIL
 ``--debug_nans`` fails the step at the first module whose output holds a
 NaN (``training/trainer.py::install_nan_checks``) and runs the backward in
 autograd's anomaly mode.
-
-Not ported yet (raises ``NotImplementedError``; ROADMAP.md):
-``--spatial_shards[_w]``.
 """
 
 from __future__ import annotations
@@ -67,16 +75,25 @@ from bts_tpu_torch.data.dataloader import BtsDataLoader
 from bts_tpu_torch.evaluation.best import BestCheckpoints, BestTracker
 from bts_tpu_torch.evaluation.metrics import METRIC_NAMES
 from bts_tpu_torch.models.bts import create_model, set_float32_precision
+from bts_tpu_torch.ops.lpg import check_divisible
 from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.training.trainer import Trainer
 from bts_tpu_torch.utils.checkpoint import CheckpointManager, restore_for_retrain
 from bts_tpu_torch.utils.summary import SummaryWriter
 
 
-def _refuse_unported(cfg) -> None:
-    if cfg.spatial_shards > 1 or cfg.spatial_shards_w > 1:
-        raise NotImplementedError(
-            "--spatial_shards[_w] ('Modules to port' 8) is not ported to bts_tpu_torch yet (ROADMAP.md)")
+def check_spatial(cfg) -> None:
+    """The augmented frames are what is split into bands: their geometry must
+    tile the N x M bands exactly, and the LPG heads' cells too."""
+    n, m = cfg.spatial_shards, cfg.spatial_shards_w
+    if n * m == 1:
+        return
+    if cfg.input_height % n:
+        raise SystemExit(f"input_height {cfg.input_height} not divisible by --spatial_shards {n}")
+    if cfg.input_width % m:
+        raise SystemExit(f"input_width {cfg.input_width} not divisible by --spatial_shards_w {m}")
+    check_divisible(cfg.input_height, cfg.input_width, n, m)
+    print(f"[bts_tpu_torch] spatial sharding: H over {n} x W over {m} processes")
 
 
 def load_pretrained_encoder(model, path: str) -> None:
@@ -179,7 +196,7 @@ def online_eval(model, cfg, device, max_samples: int = 0):
 
 def main(argv=None):
     cfg = parse_args(argv, mode="train")
-    _refuse_unported(cfg)
+    check_spatial(cfg)
     device = require_device(cfg)
     started = parallel.maybe_init_distributed(cfg)
     try:
@@ -191,8 +208,9 @@ def main(argv=None):
 
 def train(cfg, device):
     world, primary = parallel.world(), parallel.is_primary()
-    if cfg.batch_size % world:
-        raise SystemExit(f"batch_size {cfg.batch_size} not divisible by {world} processes")
+    if cfg.batch_size % parallel.data_world():
+        raise SystemExit(f"batch_size {cfg.batch_size} not divisible by {parallel.data_world()} processes"
+                         + ("" if parallel.data_world() == world else " (data groups)"))
     backend = f", {dist.get_backend()}" if parallel.initialized() else ""
     print(f"[bts_tpu_torch] device {device}, rank {parallel.rank()} of {world}{backend}")
     set_float32_precision()

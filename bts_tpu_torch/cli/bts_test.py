@@ -20,6 +20,16 @@ Without one, the seeded initialisation is used.  :func:`main` runs on
 
     python -m bts_tpu_torch.cli.bts_test @arguments/arguments_test_eigen.txt \\
         --checkpoint_path runs/bts_eigen_v2/ckpt
+
+Spatial inference (``--spatial_shards N [--spatial_shards_w M]``) under
+torchrun, laid out as ``bts_main``'s (``parallel/spatial.py``): the batch
+over the D = world / (N*M) data groups (over one group when the batch does
+not divide, as the JAX package shrinks its data axis), each frame in N x M
+bands, and the bands of the five outputs gathered on the first rank of
+each data group, which writes that group's PNGs (:func:`predict_banded`):
+
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m bts_tpu_torch.cli.bts_test @arguments/arguments_test_eigen.txt --spatial_shards 2
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ import torch
 from bts_tpu_torch.config import adopt_sidecar_geometry, parse_args, require_device
 from bts_tpu_torch.data.augment import eval_preprocess
 from bts_tpu_torch.models.bts import set_float32_precision
+from bts_tpu_torch.parallel import distributed as parallel
+from bts_tpu_torch.parallel import spatial
 from bts_tpu_torch.utils.weights import restore_model
 
 
@@ -49,6 +61,32 @@ def predict(cfg, model, batches: Iterable[dict], device) -> Iterator[Tuple[torch
             focal = torch.as_tensor(batch["focal"]).to(device) if use_focal else None
             outs = model(image, focal)
         yield outs
+
+
+def predict_banded(cfg, model, batches: Iterable[dict], device, n_data: int) -> Iterator[tuple]:
+    """:func:`predict` on spatial bands: for each batch, this rank's data
+    group's rows (of ``n_data`` groups; none past them) and its band of
+    each frame go through the model, and the bands of the five outputs are
+    gathered over the spatial group.  Yields (first row, the five whole
+    outputs) on the group's first rank and (first row, None) elsewhere."""
+    set_float32_precision()
+    grid = spatial.grid()
+    use_focal = cfg.dataset == "kitti"
+    for batch in batches:
+        b = len(batch["image"])
+        if grid.d >= n_data:
+            yield 0, None
+            continue
+        rows = slice(grid.d * b // n_data, (grid.d + 1) * b // n_data)
+        with torch.inference_mode():
+            images = torch.as_tensor(batch["image"][rows]).to(device)
+            bands = spatial.bands(grid, images.shape[1], images.shape[2])
+            image = bands.cut(eval_preprocess(images).permute(0, 3, 1, 2)).contiguous()
+            focal = torch.as_tensor(batch["focal"][rows]).to(device) if use_focal else None
+            with spatial.use(bands):
+                outs = model(image, focal)
+            outs = tuple(bands.gather(o) for o in outs)
+        yield rows.start, outs if grid.writer else None
 
 
 def pred_name(image_path: str, data_path: str) -> str:
@@ -74,12 +112,22 @@ def save_cmap_png(path: str, depth: np.ndarray, max_depth: float) -> None:
 
 
 def main(argv=None):
-    from bts_tpu_torch.data.dataloader import BtsDataLoader
-    from bts_tpu_torch.data.depth_io import write_depth_png
-
     cfg = parse_args(argv, mode="test")
     cfg = adopt_sidecar_geometry(cfg)  # trained-run stride-2 geometry, if recorded
     device = require_device(cfg)
+    banded = cfg.spatial_shards * cfg.spatial_shards_w > 1
+    started = parallel.maybe_init_distributed(cfg) if banded else False
+    try:
+        return _test(cfg, parallel.local_device(device) if banded else device, banded)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _test(cfg, device, banded: bool) -> int:
+    from bts_tpu_torch.data.dataloader import BtsDataLoader
+    from bts_tpu_torch.data.depth_io import write_depth_png
+
     print(f"[bts_tpu_torch] device {device}")
     model = restore_model(cfg, device)
     loader = BtsDataLoader(cfg, "test")
@@ -92,15 +140,16 @@ def main(argv=None):
         os.makedirs(os.path.join(out_dir, f"lpg_{k}"), exist_ok=True)
     n_total = len(loader)
 
-    def write_outputs(start, outs):
-        """PNGs of one batch; the loader's pad samples in the tail batch
-        (the last sample repeated) are skipped."""
+    def write_outputs(start, outs) -> int:
+        """PNGs of one batch's samples from ``start`` on; returns how many.
+        The loader's pad samples in the tail batch (the last sample
+        repeated) are skipped."""
         final = outs[4][:, 0].cpu().numpy()
         lpgs = [(k, outs[i][:, 0].cpu().numpy()) for i, k in enumerate(lpg_names)]
         for j in range(final.shape[0]):
             i = start + j
             if i >= n_total:
-                break
+                return j
             name = pred_name(loader.samples[i].image_path, cfg.data_path)
             write_depth_png(os.path.join(out_dir, "raw", name + ".png"), final[j], cfg.dataset)
             if cfg.save_cmap:
@@ -110,12 +159,26 @@ def main(argv=None):
                 write_depth_png(path, d[j] * cfg.max_depth, cfg.dataset)
             if (i + 1) % 50 == 0:
                 print(f"[bts_tpu_torch] {i + 1}/{n_total}", flush=True)
-        return min(start + final.shape[0], n_total)
+        return final.shape[0]
 
-    start = 0
-    for outs in predict(cfg, model, loader.prefetched(num_epochs=1), device):
-        start = write_outputs(start, outs)
-    print(f"[bts_tpu_torch] wrote {start} predictions to {out_dir}")
+    start = written = 0
+    if banded:
+        n_data = parallel.data_world()
+        n_data = n_data if cfg.batch_size % n_data == 0 else 1
+        if parallel.is_primary():
+            print(f"[bts_tpu_torch] spatial inference: H over {cfg.spatial_shards} x W over "
+                  f"{cfg.spatial_shards_w} processes, batch over {n_data}")
+        for first, outs in predict_banded(cfg, model, loader.prefetched(num_epochs=1), device, n_data):
+            if outs is not None:
+                written += write_outputs(start + first, outs)
+            start += cfg.batch_size
+        parallel.barrier()
+    else:
+        for outs in predict(cfg, model, loader.prefetched(num_epochs=1), device):
+            written += write_outputs(start, outs)
+            start += outs[4].shape[0]
+    if not banded or spatial.grid().writer:
+        print(f"[bts_tpu_torch] wrote {written} predictions to {out_dir}")
     return 0
 
 

@@ -94,8 +94,8 @@ class Config:
     encoder_pad: str = "auto"  # auto | same | torch; stride-2 window alignment in the encoder — torchvision weights (--pretrained_model) need "torch" or they land one pixel off at every downsampling stage; "auto" = torch when --pretrained_model is set (recorded in the run's config sidecar so test/eval restore matches), else TF-SAME
     use_native_loader: str = "auto"  # auto | always | never (C++ decode path)
     shard_opt_state: bool = False  # ZeRO-1 optimizer-state sharding
-    spatial_shards: int = 1  # shard image height over this many devices
-    spatial_shards_w: int = 1  # additionally shard image width
+    spatial_shards: int = 1  # split each frame's height into this many bands, one process each (parallel/spatial.py)
+    spatial_shards_w: int = 1  # and its width into this many
     grad_accum_steps: int = 1  # microbatches per optimizer step (batch_size must divide)
     dataloader_workers: int = 2
     seed: int = 0  # base seed for init, augmentation draws, loader shuffle

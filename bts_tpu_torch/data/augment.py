@@ -244,9 +244,11 @@ def augment_batch(images, depths, gen: torch.Generator, *, out_h: int, out_w: in
     or [0, 1] images and (B, H, W) depths -> (B, out_h, out_w, 3) normalised
     images and (B, out_h, out_w) depths.
 
-    ``share`` (r, N): the images are rank r's B rows of a data-parallel batch
-    of N*B; the draws are made for all N*B samples and rank r keeps those of
-    rows [r*B, (r+1)*B), so the batch is augmented as one process would."""
+    ``share`` (r, N): the images are data group r's B rows of a batch of N*B
+    (a data-parallel rank; under spatial sharding, every band of the group
+    draws alike and cuts its band after); the draws are made for all N*B
+    samples and group r keeps those of rows [r*B, (r+1)*B), so the batch is
+    augmented as one process would."""
     b, h, w = images.shape[:3]
     r, n = share
     draws = draw_augment(gen, n * b, h, w, out_h, out_w, dataset, degree)

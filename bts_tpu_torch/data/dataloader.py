@@ -167,11 +167,12 @@ class BtsDataLoader:
                 "every epoch would be empty (train mode drops the remainder)"
             )
         # data parallel: every rank shuffles with the same seed (one global
-        # order) and loads its share of each global microbatch
+        # order) and loads its data group's share of each global microbatch
+        # (the bands of one frame are one data group: the same rows)
         self.rows = None
-        if mode == "train" and parallel.world() > 1:
+        if mode == "train" and parallel.data_world() > 1:
             self.rows = parallel.rank_rows(self.batch_size, max(1, int(cfg.grad_accum_steps)),
-                                           parallel.rank(), parallel.world())
+                                           parallel.data_rank(), parallel.data_world())
         self.local_batch = self.batch_size if self.rows is None else len(self.rows)
 
     def __len__(self):

@@ -28,6 +28,13 @@ phase planes (K5) and upconv1 -> reduc1x1 -> concat -> conv1 -> get_depth
 runs as one kernel (K6) in the TPU kernel's bf16 rounding schedule, reading
 the same modules' weights.  "auto" keeps the literal tail, as the JAX
 package does.
+
+Spatial sharding (``--spatial_shards N --spatial_shards_w M``,
+``parallel/spatial.py``): inside ``spatial.use(bands)`` the forward runs on
+this rank's band of every activation; K1 runs on each band of the three
+LPG heads unchanged (whole cells), the focal scaling is per sample, and
+the fused tail is never taken (``create_model`` sets "never", as the JAX
+package does: its row halos do not cross bands).
 """
 
 from __future__ import annotations
@@ -51,6 +58,8 @@ from bts_tpu_torch.models.layers import (
 )
 from bts_tpu_torch.ops import tail_cuda
 from bts_tpu_torch.ops.lpg import lpg_scaled_from_raw, lpg_strided, plane_from_spherical
+from bts_tpu_torch.parallel import distributed as parallel
+from bts_tpu_torch.parallel import spatial
 
 KITTI_FOCAL = 715.0873
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -251,11 +260,17 @@ def create_model(cfg, device="cpu") -> BtsModel:
     """Build a BtsModel from a ``bts_tpu_torch.config.Config``, seeded from
     ``cfg.seed``, in eval mode on ``device`` (``Trainer`` switches it to
     train mode).  The initialisation runs on the CPU, so a seed gives the
-    same weights on every device."""
-    if cfg.spatial_shards > 1 or cfg.spatial_shards_w > 1:
-        raise NotImplementedError(
-            "--spatial_shards is not ported to bts_tpu_torch yet (ROADMAP.md, 'Modules to port')"
-        )
+    same weights on every device.
+
+    ``--spatial_shards N --spatial_shards_w M``: the model runs on bands
+    over N*M processes of the initialised process group (``parallel/
+    spatial.py``), which must hold a multiple of N*M, and keeps the literal
+    decoder tail (``fused_tail`` "never")."""
+    shards = cfg.spatial_shards * cfg.spatial_shards_w
+    fused_tail = cfg.fused_tail
+    if shards > 1:
+        spatial.check_world(cfg.spatial_shards, cfg.spatial_shards_w, parallel.world())
+        fused_tail = "never"
     dtype = DTYPES[cfg.compute_dtype]
     encoder = build_encoder(cfg.encoder, dtype=dtype, pad_style=resolved_encoder_pad(cfg),
                             remat=cfg.remat, remat_policy=cfg.remat_policy)
@@ -265,7 +280,7 @@ def create_model(cfg, device="cpu") -> BtsModel:
         num_features=cfg.bts_size,
         dtype=dtype,
         use_pallas=cfg.use_pallas,
-        fused_tail=cfg.fused_tail,
+        fused_tail=fused_tail,
     )
     model = BtsModel(encoder, decoder, dtype)
     init_weights(model, torch.Generator().manual_seed(cfg.seed))

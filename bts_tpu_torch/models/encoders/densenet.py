@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy
 
-from bts_tpu_torch.models.layers import BatchNorm, Conv2d, checkpoint, pad_stride2
+from bts_tpu_torch.models.layers import BatchNorm, Conv2d, avg_pool2, checkpoint, stride2
 
 REMAT_POLICIES = ("layer", "block", "convs")
 
@@ -39,6 +39,10 @@ def _save_convs(ctx, op, *args, **kwargs):
     if op == torch.ops.aten.convolution.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _max_pool(x):
+    return F.max_pool2d(x, 3, stride=2)
 
 
 def _run_layers(layers: Sequence[nn.Module], x):
@@ -68,7 +72,7 @@ class Transition(nn.Module):
         self.conv = Conv2d(in_channels, out_channels, 1, bias=False, dtype=dtype)
 
     def forward(self, x):
-        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2)
+        return avg_pool2(self.conv(F.relu(self.norm(x))))
 
 
 class DenseNet(nn.Module):
@@ -124,10 +128,10 @@ class DenseNet(nn.Module):
     def forward(self, x):
         f = self.features
         feats = []
-        x = f["conv0"](pad_stride2(x, 7, self.pad_style))
+        x = stride2(f["conv0"], x, 7, self.pad_style)
         x = F.relu(f["norm0"](x))
         feats.append(x)  # relu0: H/2
-        x = F.max_pool2d(pad_stride2(x, 3, self.pad_style, value=float("-inf")), 3, stride=2)
+        x = stride2(_max_pool, x, 3, self.pad_style, value=float("-inf"))
         feats.append(x)  # pool0: H/4
         for i in range(len(self.block_config)):
             x = self._run_block(list(f[f"denseblock{i + 1}"].values()), x)

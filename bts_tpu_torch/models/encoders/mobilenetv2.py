@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bts_tpu_torch.models.layers import BatchNorm, Conv2d, checkpoint, pad_stride2
+from bts_tpu_torch.models.layers import BatchNorm, Conv2d, checkpoint, stride2
 
 # (expansion, channels, repeats, stride)
 _MBV2_CONFIG = (
@@ -62,13 +62,12 @@ class InvertedResidual(nn.Module):
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x):
-        *expand, depthwise, project, bn = self.conv
+        *expand, (dw_conv, dw_bn), project, bn = self.conv
         y = x
         for m in expand:  # none when the expansion is 1
             y = F.relu6(m(y))
-        if self.stride == 2:
-            y = pad_stride2(y, 3, self.pad_style)
-        y = bn(project(F.relu6(depthwise(y))))
+        y = stride2(dw_conv, y, 3, self.pad_style) if self.stride == 2 else dw_conv(y)
+        y = bn(project(F.relu6(dw_bn(y))))
         return x + y if self.use_res else y
 
 
@@ -91,7 +90,8 @@ class MobileNetV2(nn.Module):
 
     def forward(self, x):
         f = self.features
-        x = F.relu6(f[0](pad_stride2(x, 3, self.pad_style)))
+        conv, bn = f[0]
+        x = F.relu6(bn(stride2(conv, x, 3, self.pad_style)))
         feats = []
         remat = self.remat and torch.is_grad_enabled()
         for j in range(1, len(f) - 1):

@@ -8,7 +8,7 @@ torchvision's (``conv1``, ``bn1``, ``layer{1..4}.{b}.conv{1,2,3}`` /
 ``torch_converter.resnet_mapping`` names.
 
 Stride-2 windows (the 7x7 stem, the 3x3 max pool and each stage's first
-3x3 conv) pad by ``layers.pad_stride2`` under ``pad_style``; the stride-1
+3x3 conv) pad through ``layers.stride2`` under ``pad_style``; the stride-1
 3x3 convs pad 1 on each side, and the stride-2 1x1 projection needs none.
 
 Returns features at strides 2/4/8/16/32:
@@ -26,7 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bts_tpu_torch.models.layers import BatchNorm, Conv2d, checkpoint, pad_stride2
+from bts_tpu_torch.models.layers import BatchNorm, Conv2d, checkpoint, stride2
+
+
+def _max_pool(x):
+    return F.max_pool2d(x, 3, stride=2)
 
 
 class Bottleneck(nn.Module):
@@ -37,7 +41,7 @@ class Bottleneck(nn.Module):
         self.pad_style = pad_style
         self.conv1 = Conv2d(in_channels, inner, 1, bias=False, dtype=dtype)
         self.bn1 = BatchNorm(inner)
-        # stride 2 pads explicitly (pad_stride2), stride 1 symmetrically by 1
+        # stride 2 pads explicitly (layers.stride2), stride 1 symmetrically by 1
         self.conv2 = Conv2d(inner, inner, 3, stride=stride, padding=0 if stride == 2 else 1,
                             groups=groups, bias=False, dtype=dtype)
         self.bn2 = BatchNorm(inner)
@@ -52,9 +56,8 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
-        if self.stride == 2:
-            y = pad_stride2(y, 3, self.pad_style)
-        y = F.relu(self.bn2(self.conv2(y)))
+        y = stride2(self.conv2, y, 3, self.pad_style) if self.stride == 2 else self.conv2(y)
+        y = F.relu(self.bn2(y))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
@@ -74,7 +77,7 @@ class ResNet(nn.Module):
         self.stage_sizes = tuple(stage_sizes)
         self.pad_style = pad_style
         self.remat = remat
-        # the stride-2 stem pads explicitly (layers.pad_stride2), so its conv has none
+        # the stride-2 stem pads explicitly (layers.stride2), so its conv has none
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=0, bias=False, dtype=dtype)
         self.bn1 = BatchNorm(64)
         ch = 64
@@ -91,9 +94,9 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         feats = []
-        x = F.relu(self.bn1(self.conv1(pad_stride2(x, 7, self.pad_style))))
+        x = F.relu(self.bn1(stride2(self.conv1, x, 7, self.pad_style)))
         feats.append(x)  # stride 2, 64 channels
-        x = F.max_pool2d(pad_stride2(x, 3, self.pad_style, value=float("-inf")), 3, stride=2)
+        x = stride2(_max_pool, x, 3, self.pad_style, value=float("-inf"))
         remat = self.remat and torch.is_grad_enabled()
         for i in range(len(self.stage_sizes)):
             for block in getattr(self, f"layer{i + 1}"):

@@ -9,6 +9,13 @@ Conventions, as in the JAX package:
   as flax does (momentum 0.99 on the old value, biased batch variance);
 - ELU inside the decoder, ReLU inside the dense-ASPP cells.
 
+Spatial sharding (``parallel/spatial.py``): inside ``spatial.use(bands)``
+every window op here runs on this rank's band: :class:`Conv2d`,
+:func:`stride2` (the stride-2 convs and pools with their SAME padding),
+:func:`avg_pool2` and :class:`UpConv` fetch the halo their output band
+needs and compute that band; 1x1 convs, BatchNorm and the pointwise ops
+need none.  Outside it they run whole tensors.
+
 Module attribute names are the upstream torch names that
 ``bts_tpu/utils/torch_converter.py::decoder_mapping`` uses, so a converted
 ``state_dict`` loads with no renaming.
@@ -27,6 +34,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from bts_tpu_torch.ops.resize import fold_up2x_kernel, upsample_nearest_2x
+from bts_tpu_torch.parallel import spatial
 
 BN_EPS = 1.1e-5
 BN_MOMENTUM = 0.99  # flax's: running = 0.99 * running + 0.01 * batch
@@ -40,11 +48,11 @@ def recomputing() -> bool:
 
 
 @contextlib.contextmanager
-def _recompute_scope(inner):
+def _recompute_scope(inner, bands):
     prev = recomputing()
     _remat.recomputing = True
     try:
-        with inner:
+        with inner, spatial.use(bands):
             yield
     finally:
         _remat.recomputing = prev
@@ -53,15 +61,18 @@ def _recompute_scope(inner):
 def checkpoint(fn, *args, policy=None):
     """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)`` whose
     recompute leaves BatchNorm's running statistics alone, as flax's
-    ``nn.remat`` discards the recompute's mutations.  ``policy`` (optional)
-    is a selective-checkpoint policy: what it saves is not recomputed."""
+    ``nn.remat`` discards the recompute's mutations, and runs on the
+    spatial bands of the forward (the backward may run on another thread).
+    ``policy`` (optional) is a selective-checkpoint policy: what it saves is
+    not recomputed."""
+    bands = spatial.current()
 
     def context_fn():
         if policy is None:
             fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
         else:
             fwd, rec = torch.utils.checkpoint.create_selective_checkpoint_contexts(policy)
-        return fwd, _recompute_scope(rec)
+        return fwd, _recompute_scope(rec, bands)
 
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
 
@@ -85,6 +96,43 @@ def pad_stride2(x: torch.Tensor, kernel: int, style: str, value: float = 0.0) ->
     top, bottom = pad2(kernel, style, x.shape[-2])
     left, right = pad2(kernel, style, x.shape[-1])
     return F.pad(x, (left, right, top, bottom), value=value)
+
+
+def _banded(x, fn, spec_h, spec_w, up=False, value=0.0):
+    """``fn`` (an op with no padding of its own, see ``spatial._need`` for
+    the specs) on the window of the whole tensor that this rank's output
+    band needs; returns that band."""
+    win, (oy, oh), (ox, ow) = spatial.current().window(x, spec_h, spec_w, up, value)
+    with spatial.use(None):
+        if oh and ow:
+            return fn(win).narrow(-2, oy, oh).narrow(-1, ox, ow)
+        # an empty band (H/16 or H/32 in more bands than rows): fn on a
+        # minimal input, cut to nothing, keeps fn's weights and the window in
+        # the graph, so this rank runs every backward exchange the others do
+        span = [1 if spec[0] == "up" else spec[1] for spec in (spec_h, spec_w)]
+        out = fn(win.new_zeros(win.shape[0], win.shape[1], *span))
+        return out.new_zeros(*out.shape[:2], oh, ow) + (out.sum() + win.sum().to(out.dtype)) * 0
+
+
+def stride2(fn, x: torch.Tensor, kernel: int, style: str, value: float = 0.0) -> torch.Tensor:
+    """``fn`` (a stride-2 ``kernel`` window with no padding of its own: a
+    conv or a pool) on ``x`` padded by :func:`pad_stride2`.  On a spatial
+    band the padding is the whole tensor's (TF SAME depends on its size)
+    and the band's windows keep the global stride phase."""
+    bands = spatial.current()
+    if bands is None:
+        return fn(pad_stride2(x, kernel, style, value))
+    (top, bottom), (left, right) = (pad2(kernel, style, n) for n in bands.global_size(x))
+    return _banded(x, fn, ("win", kernel, 2, top, top + bottom), ("win", kernel, 2, left, left + right),
+                   value=value)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool, stride 2, no padding (DenseNet's transitions)."""
+    if spatial.current() is None:
+        return F.avg_pool2d(x, 2)
+    spec = ("win", 2, 2, 0, 0)
+    return _banded(x, lambda t: F.avg_pool2d(t, 2), spec, spec)
 
 
 class Conv2d(nn.Conv2d):
@@ -115,10 +163,15 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(
-            x.to(self.dtype), self.weight.to(self.dtype), bias,
-            self.stride, self.padding, self.dilation, self.groups,
-        )
+        weight = self.weight.to(self.dtype)
+        k, stride = self.kernel_size[0], self.stride[0]
+        if spatial.current() is None or (k == 1 and stride == 1 and x.shape[-2] and x.shape[-1]):
+            # a whole tensor, or a 1x1 conv, which needs no halo
+            return F.conv2d(x.to(self.dtype), weight, bias, self.stride, self.padding, self.dilation, self.groups)
+        span = self.dilation[0] * (k - 1) + 1
+        specs = [("win", span, stride, p, 2 * p) for p in self.padding]
+        return _banded(x, lambda t: F.conv2d(t.to(self.dtype), weight, bias, self.stride, 0, self.dilation,
+                                             self.groups), *specs)
 
 
 class ConvBlock(Conv2d):
@@ -147,9 +200,10 @@ class BatchNorm(nn.Module):
     ``track_stats`` is False (``--bn_no_track_stats``).  torch's own
     batch_norm would fold the unbiased variance into the running one.
 
-    ``process_group`` (set by a data-parallel ``Trainer``): the batch is
-    split over its ranks, and the moments are those of the global batch, as
-    flax takes them over a data-sharded batch under ``jit``: the per-channel
+    ``process_group`` (set by a data-parallel or spatial ``Trainer``): the
+    batch, or each frame's bands, are split over its ranks, and the moments
+    are those of the global batch, as flax takes them over a sharded batch
+    under ``jit``: the per-channel
     sums of x and x^2 and the count go through one autograd all-reduce, and
     every rank folds the same global moments into its running statistics.
     Every rank must then run the same train-mode forwards in the same order,
@@ -260,6 +314,12 @@ class UpConv(nn.Module):
         self.deterministic = dtype == torch.float32
 
     def forward(self, x):
+        if spatial.current() is None:
+            return self._whole(x)
+        # a band: output rows [o0, o1) take input rows (o0 - 1) // 2 .. o1 // 2
+        return _banded(x, self._whole, ("up",), ("up",), up=True)
+
+    def _whole(self, x):
         if not self.fused:
             return self.conv(upsample_nearest_2x(x))
         conv = self.conv

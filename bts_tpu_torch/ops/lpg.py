@@ -35,11 +35,30 @@ def _check_setting(use_pallas: str) -> None:
         raise ValueError(f"use_pallas must be one of {USE_PALLAS_CHOICES}, got {use_pallas!r}")
 
 
+def check_divisible(height: int, width: int, shards: int, shards_w: int, k: int = 8) -> None:
+    """Refuse a spatial split that cuts an LPG cell (the counterpart of
+    ``bts_tpu/ops/lpg_pallas.py::_check_divisible``): the plane grid of the
+    coarsest head, (H/k, W/k), must split evenly over ``shards`` x
+    ``shards_w`` bands, so every band of every head holds whole cells and
+    K1/K2 run on each band unchanged.  The practical constraint:
+    ``input_height/(8*spatial_shards)`` and ``input_width/(8*spatial_shards_w)``
+    are integers."""
+    grid = (height / k, width / k)
+    for dim, (size, n) in enumerate(zip((height, width), (shards, shards_w)), start=1):
+        if size % (k * n):
+            raise ValueError(
+                f"LPG (k={k}): dim {dim} of plane grid {grid} is sharded {n}-way but "
+                f"{grid[dim - 1]:g} % {n} != 0 — choose --spatial_shards/--spatial_shards_w so "
+                f"input_height/(8*shards) and input_width/(8*shards_w) are integers")
+
+
 def lpg_strided(plane_eq: torch.Tensor, k: int, stride: int) -> torch.Tensor:
     """LPG evaluated at every ``stride``-th full-res pixel (exact): equals
     ``lpg_reference(plane_eq, k)[:, ::stride, ::stride]`` without building the
     full-res map.  With e = k // stride, full-res row m*stride falls in cell
-    m // e at in-patch index (m % e) * stride."""
+    m // e at in-patch index (m % e) * stride.  On a spatial band of whole
+    cells (:func:`check_divisible`) the band's first row is a cell's first,
+    so the in-patch index of its local row m is the global one."""
     if k % stride:
         raise ValueError(f"stride {stride} must divide k {k}")
     e = k // stride

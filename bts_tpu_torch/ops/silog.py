@@ -9,9 +9,10 @@ KITTI (sparse LiDAR) and ``gt > 0.1`` for NYU.  Mask-weighted, as the JAX
 version, so an all-masked batch gives a finite loss.
 
 The means run over every valid pixel of the batch, so the loss is not a mean
-of per-sample terms: in a data-parallel step (``group``) the sums of d, d^2
-and the pixel count are all-reduced before the square root, and every rank
-holds the loss of the global batch.
+of per-sample terms: in a data-parallel or spatially sharded step
+(``group``: the whole world) the sums of d, d^2 and the pixel count are
+all-reduced before the square root, and every rank holds the loss of the
+global batch over all bands.
 """
 
 from __future__ import annotations

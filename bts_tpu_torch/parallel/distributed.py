@@ -14,7 +14,16 @@ Rank r loads the rows :func:`rank_rows` gives it of every global batch, the
 model is wrapped in ``DistributedDataParallel`` (``training/trainer.py``),
 and BatchNorm's batch moments and the silog sums are all-reduced, so a step
 at world size N equals the one-process step on the same global batch.
-NCCL carries a CUDA run, gloo a CPU run (``--device cpu``).
+
+Spatial sharding (``--spatial_shards N --spatial_shards_w M``) lays the
+world out as D x N x M (``parallel/spatial.py``): the batch splits over the
+D data groups (:func:`data_rank`, :func:`data_world`), and the N*M ranks of
+one group take the same rows and split each frame into bands.
+
+NCCL carries a CUDA run where each rank has its own card; gloo a CPU run
+(``--device cpu``) and ranks that share a card (torchrun's
+LOCAL_WORLD_SIZE above the card count), whose rank r takes card
+r % cards.  The choice is printed.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ from typing import List
 
 import torch
 import torch.distributed as dist
+
+from bts_tpu_torch.parallel import spatial
 
 ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -41,6 +52,18 @@ def world() -> int:
     return dist.get_world_size() if initialized() else 1
 
 
+def data_world() -> int:
+    """The number of data groups: the world over the N*M bands of a frame."""
+    g = spatial.grid()
+    return world() if g is None else g.layout.data
+
+
+def data_rank() -> int:
+    """This rank's data group (rows of the batch)."""
+    g = spatial.grid()
+    return rank() if g is None else g.d
+
+
 def is_primary() -> bool:
     """Rank 0, or the only process: the one that writes checkpoints,
     summaries and logs."""
@@ -53,12 +76,24 @@ def barrier() -> None:
 
 
 def local_device(device: torch.device) -> torch.device:
-    """This rank's device: ``cuda:LOCAL_RANK`` (made current) for a CUDA
-    device without an index, else ``device`` as it is."""
+    """This rank's device: ``cuda:LOCAL_RANK`` (modulo the card count, made
+    current) for a CUDA device without an index, else ``device`` as it is."""
     if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % max(1, torch.cuda.device_count()))
         torch.cuda.set_device(device)
     return device
+
+
+def backend_for(device: torch.device):
+    """(backend, why): NCCL for CUDA ranks that each have their own card,
+    gloo otherwise."""
+    if device.type != "cuda":
+        return "gloo", "CPU ranks"
+    local, cards = int(os.environ.get("LOCAL_WORLD_SIZE", 1)), torch.cuda.device_count()
+    if local > cards:
+        return "gloo", (f"{local} ranks share {cards} card(s) and NCCL needs a card per rank: "
+                        "host collectives, CUDA halos staged through pinned memory")
+    return "nccl", "a card per rank"
 
 
 def maybe_init_distributed(cfg) -> bool:
@@ -66,18 +101,23 @@ def maybe_init_distributed(cfg) -> bool:
     for ``--device cuda``, gloo for ``--device cpu``.  Returns True when
     this call initialised the group (the caller destroys it at the end).
 
-    Nothing happens when a group is already initialised (a caller that made
+    No group is made when one is already initialised (a caller that made
     its own) or when the environment names no group: one process.  A
     configured rendezvous that fails raises, never falling back to one
     process, which would train alone on the whole dataset into the shared
     log directory.  ``BTS_DIST_INIT_TIMEOUT`` (seconds, as in the JAX
     package) bounds the rendezvous.  ``--num_devices`` N > 0 must be the
-    world size; -1 takes the world size.
+    world size; -1 takes the world size.  With ``--spatial_shards N
+    --spatial_shards_w M`` the world must hold D*N*M ranks
+    (``spatial.check_world``); the spatial grid and its process groups are
+    made here, by every rank.
     """
     if not initialized() and all(k in os.environ for k in ENV):
         timeout = datetime.timedelta(seconds=int(os.environ.get("BTS_DIST_INIT_TIMEOUT", 1800)))
         device = local_device(torch.device(cfg.device))
-        backend = "nccl" if device.type == "cuda" else "gloo"
+        backend, why = backend_for(device)
+        if os.environ["RANK"] == "0":
+            print(f"[bts_tpu_torch] process group: {backend} ({why})", flush=True)
         try:
             dist.init_process_group(backend, init_method="env://", timeout=timeout)
         except Exception as e:
@@ -95,6 +135,10 @@ def maybe_init_distributed(cfg) -> bool:
             f"--num_devices {cfg.num_devices} but the world size is {world()}: launch one "
             f"process per card, python -m torch.distributed.run --nproc_per_node {cfg.num_devices} ..."
         )
+    try:
+        spatial.init_grid(cfg.spatial_shards, cfg.spatial_shards_w, world())
+    except ValueError as e:  # the world holds no D x N x M: a launch error
+        raise SystemExit(str(e)) from e
     return started
 
 

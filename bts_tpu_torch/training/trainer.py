@@ -29,6 +29,21 @@ is the global one.  ``state_dict`` and ``load_state_dict`` read and write
 the unwrapped model; under ZeRO-1 :meth:`Trainer.save` gathers the
 optimizer state on rank 0, which alone writes the checkpoint.
 
+Spatial sharding (``--spatial_shards N --spatial_shards_w M``,
+``parallel/spatial.py``): the N*M ranks of a data group take the same rows
+(``parallel.data_rank``), draw the augmentation of the whole global
+microbatch, augment whole frames (rotation, crop and flip are whole-image
+operations) and then cut their band; the forward runs on the bands, and
+BatchNorm's moments and the silog sums are all-reduced over the whole
+world, so each rank holds the global loss.  The model is not wrapped in
+DDP: its bucket all-reduces would run on their own thread beside the halo
+exchanges of the same backward.  Instead the gradients are summed over the
+world in one all-reduce after the backward of the last microbatch and
+divided by the world size (each rank's share of the gradient is world
+times its share, as under DDP), so ``--grad_accum_steps`` and
+``--shard_opt_state`` compose with it as with DDP.  ``depth_mean`` is the
+mean of the bands' means: equal bands at full resolution.
+
 ``--debug_nans`` (the counterpart of ``jax_debug_nans``): a forward hook on
 every module raises ``FloatingPointError`` naming the module whose output
 first holds a NaN (:func:`install_nan_checks`), and the step runs in
@@ -53,6 +68,7 @@ from bts_tpu_torch.data.augment import augment_batch, eval_preprocess
 from bts_tpu_torch.models.layers import BatchNorm
 from bts_tpu_torch.ops.silog import default_mask, silog_loss
 from bts_tpu_torch.parallel import distributed as parallel
+from bts_tpu_torch.parallel import spatial
 from bts_tpu_torch.training.optimizer import freeze, make_optimizer
 
 
@@ -92,7 +108,7 @@ class Trainer:
         self.device = torch.device(device)
         self.augment = augment
         self.step = 0
-        self.rank, self.world = parallel.rank(), parallel.world()
+        self.world = parallel.world()
         # the group the batch is split over (None: the batch is whole here)
         self.group = dist.group.WORLD if self.world > 1 else None
         for m in model.modules():
@@ -100,8 +116,14 @@ class Trainer:
                 m.track_stats = not cfg.bn_no_track_stats
                 m.process_group = self.group
         self.frozen = freeze(model, cfg)
+        self.grid = None
+        if cfg.spatial_shards * cfg.spatial_shards_w > 1:
+            self.grid = spatial.grid()
+            if self.grid is None:
+                raise ValueError("--spatial_shards: the process group and its spatial grid are made by "
+                                 "parallel.maybe_init_distributed(cfg); launch with torchrun")
         self.ddp = None
-        if parallel.initialized():
+        if parallel.initialized() and self.grid is None:
             # frozen parameters (requires_grad False) are not DDP's; the
             # global BatchNorm keeps every rank's buffers equal, so rank 0's
             # are not broadcast before each forward
@@ -119,12 +141,17 @@ class Trainer:
             images, depths = augment_batch(
                 images, depths, gen, out_h=cfg.input_height, out_w=cfg.input_width,
                 dataset=cfg.dataset, degree=cfg.degree, do_random_rotate=cfg.do_random_rotate,
-                share=(self.rank, self.world),
+                share=(parallel.data_rank(), parallel.data_world()),
             )
         else:
             images, depths = eval_preprocess(images), depths.float()
+        bands = None
+        if self.grid is not None:
+            bands = spatial.bands(self.grid, images.shape[1], images.shape[2])
+            images, depths = bands.cut(images, (1, 2)), bands.cut(depths, (1, 2))
         model = self.model if self.ddp is None else self.ddp
-        outs = model(images.permute(0, 3, 1, 2), focal if cfg.dataset == "kitti" else None)
+        with spatial.use(bands):
+            outs = model(images.permute(0, 3, 1, 2), focal if cfg.dataset == "kitti" else None)
         final = outs[4][:, 0]
         loss = silog_loss(final, depths, default_mask(depths, cfg.dataset), cfg.variance_focus,
                           group=self.group)
@@ -158,6 +185,8 @@ class Trainer:
                     scope.enter_context(torch.autograd.set_detect_anomaly(True))
                 loss, final = self._loss(images[sl], depths[sl], focal[sl], gen)
                 (loss / accum).backward()
+            if self.grid is not None and last:
+                self._reduce_grads()
             loss_sum = loss_sum + loss.detach()
             depth_sum = depth_sum + final.detach().mean()
         if self.group is not None:
@@ -170,6 +199,18 @@ class Trainer:
         self.step += 1
         return {"loss": loss_sum / accum, "depth_mean": depth_sum / accum,
                 "grad_norm": grad_norm, "learning_rate": lr}
+
+    def _reduce_grads(self) -> None:
+        """The gradient of the global loss under spatial sharding: every
+        rank's gradient summed in one all-reduce over the world and divided
+        by the world size (a parameter without a gradient here counts
+        zeros, so every rank sends the same buffer)."""
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        flat /= self.world
+        for p, g in zip(self.params, flat.split([p.numel() for p in self.params])):
+            p.grad = g.view_as(p)
 
     def state_dict(self) -> dict:
         """Model, optimizer, schedule and step.  Under ZeRO-1 every rank must

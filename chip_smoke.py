@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (the literal and the fused decoder
 tail), the decoder's UpConvs in both forms, its training paths (config 4 and config 3, config 4 also under
-torch.distributed and fed from each input loader), the other encoders, the
+torch.distributed and fed from each input loader), spatial sharding (configs 2 and 4 in bands), the other encoders, the
 evaluation entry points, the serving entry points (convert, export, HTTP,
 sequence) and its public LPG op once on one NVIDIA GPU and check them.
 
@@ -153,17 +153,42 @@ Phases, one JSON line each, then the result:
                 ms per step at b16 (2 x b8, bf16), 3 K1 + 3 K2 per step per
                 rank.  The ranks are this script (train_ddp_rank); a failed
                 rank fails the phase.
-13. kernel_nyu - K1 and K2 at the three config-3 heads (NYU 416x544, b4)
+13. spatial   - spatial sharding: ranks under torchrun, all on cuda:0 over
+                gloo (halos staged through pinned host memory; the ranks
+                are this script, spatial_rank).  (a) config 2 serving
+                (DenseNet-161, bts_size 512, 352x1216, b1, f32, KITTI
+                focal) at 2 ranks (H over 2) and at 4 (2 x 2), each band's
+                outputs gathered into the frame: max|banded - one process|
+                / max|one process| <= 2e-5 for each of the five outputs
+                against the forward made in this process on the same
+                seeded weights, 3 K1 per rank; bts_test --spatial_shards 2
+                on 3 synthetic KITTI frames writes the one-process run's
+                PNGs within one unit.  (b) config 4 at 2 ranks: one f32
+                Trainer step at a global b2 against the one-process step
+                (loss rtol 1e-5, BatchNorm statistics 1e-5, the gradient
+                the Trainer applied within the larger of 1e-3 and twice
+                the distance one ulp of every weight moves it, the
+                largest of 3 probes with seeded signs); the same step with
+                BatchNorm frozen: the whole gradient within the larger of
+                1e-4 and twice the probes', each tensor within the larger
+                of 1e-3 and twice its probes' (a ReLU input within ~1e-6
+                of zero flips under either change: the flipped masks of
+                the encoder's BatchNorm outputs are counted); then
+                2 warm-up and 8 timed bf16 b16 steps (remat 'layer'): ms per
+                step (median, q1, q3), peak memory per rank beside the
+                train phase's, halo bytes sent per step per rank, the
+                backend, 3 K1 + 3 K2 per step per rank.
+14. kernel_nyu - K1 and K2 at the three config-3 heads (NYU 416x544, b4)
                 and K1 at the three heads of a NYU online eval (480x640, b4),
                 f32 and bf16 raw, by the rules and with the columns of
                 kernel_bwd; the per-step sums of config 3.
-14. encoders  - ResNet-50/101, ResNeXt-50/101 and MobileNetV2 serving at
+15. encoders  - ResNet-50/101, ResNeXt-50/101 and MobileNetV2 serving at
                 352x1216 b1 (bts_size 512, seeded weights): one f32 forward
                 with 3 K1 launches against use_pallas="never" (maps by K1's
                 rule, final rtol 1e-5) and against the CPU at 64x96 (rtol
                 2e-4, atol 2e-4*max|ref|); median ms of 5 bf16 forwards and
                 the peak memory.
-15. train_nyu - config 3 (ResNeXt-101, NYU 480x640 frames border-cropped to
+16. train_nyu - config 3 (ResNeXt-101, NYU 480x640 frames border-cropped to
                 427x565 and augmented to 416x544 with rotation <= 2.5
                 degrees, depth in [0.2, 9.5) m, b4, bf16, no remat, AdamW lr
                 1e-4, wd 1e-2, eps 1e-3) through create_model + Trainer, by
@@ -175,7 +200,7 @@ Phases, one JSON line each, then the result:
                 2 warm-up and 10 timed b4 bf16 steps (3 K1 and 3 K2
                 launches each): ms per step, images/s, peak memory; a
                 torch.profiler window of 2 steps (busy share, top kernels).
-16. eval      - the entry points on a synthetic NYU tree of 10 frames at
+17. eval      - the entry points on a synthetic NYU tree of 10 frames at
                 480x640: bts_main with the config-3 recipe
                 (arguments/arguments_train_nyu.txt, ResNeXt-101, b4) for 4
                 steps with --do_online_eval --eval_freq 2 (3 K1 launches per
@@ -189,7 +214,7 @@ Phases, one JSON line each, then the result:
                 eval (KB crop, garg crop, padded back to 375x1242) of the
                 config-4 state from phase 10 over 20 frames at b16: finite,
                 3 K1 launches per batch forward, images/s.
-17. serving   - DenseNet-161, bts_size 512, KITTI, seeded weights, f32:
+18. serving   - DenseNet-161, bts_size 512, KITTI, seeded weights, f32:
                 an upstream-style full .pth ({"model": module.encoder.
                 base_model.* / module.decoder.*}) through bts_convert, read
                 back by read_weights equal to the source; bts_export at
@@ -213,7 +238,7 @@ Phases, one JSON line each, then the result:
                 2): 3 K1 per batch forward, each PNG within 1 unit of
                 bts_test's for the same frame, through the kernels and
                 through --use_pallas never; frames/s.
-18. input     - the input plane at config-4 width.  A leg this machine
+19. input     - the input plane at config-4 width.  A leg this machine
                 cannot run (the native library does not build: no libpng/
                 libjpeg headers; no array_record package) is named on its
                 own line with the reason, first.  (a) 16 synthetic KITTI
@@ -239,9 +264,10 @@ Phases, one JSON line each, then the result:
                 one step in a subprocess with a NaN in the weight of
                 encoder.features.denseblock2.denselayer1.conv1: exits non-zero
                 with FloatingPointError naming it.
-19. result    - {"kernels": [...]}: all six kernels, launches by main path
-                (serve, serve_tail, train, train_ddp, op, encoders,
-                train_nyu, eval, export, serve_http, sequence, input; each path's
+20. result    - {"kernels": [...]}: all six kernels, launches by main path
+                (serve, serve_tail, train, train_ddp, spatial, op,
+                encoders, train_nyu, eval, export, serve_http, sequence,
+                input; each path's
                 counts set to 0 just before it runs), and ms,
                 plain_ms, bound_ms per the unit
                 named in "per" (K1, K2: a training step's three heads, bf16
@@ -1404,9 +1430,9 @@ def train_config(**kw):
     return Config(**base)
 
 
-def perturbed(model, perturb: float):
-    """``model`` with every weight scaled by 1 +- perturb (a seeded sign)."""
-    gen = torch.Generator().manual_seed(0)
+def perturbed(model, perturb: float, seed: int = 0):
+    """``model`` with every weight scaled by 1 +- perturb (a sign from ``seed``)."""
+    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
             p.mul_((1 + perturb * (torch.randint(0, 2, p.shape, generator=gen) * 2 - 1)).to(p.device))
@@ -1573,15 +1599,22 @@ DDP_STEPS, DDP_FRAMES = 12, 16  # train_ddp (a): bts_main steps under torchrun, 
 DDP_TIMED = 4  # train_ddp (b): timed b16 steps of the two ranks, after 2 warm-up
 
 
-def _step_record(cfg, batch, device, perturb: float = 0.0) -> dict:
+def _step_record(cfg, batch, device, perturb: float = 0.0, seed: int = 0, frozen_bn: bool = False) -> dict:
     """One f32 step of a fresh seeded model through the Trainer: the loss,
-    the gradient and the BatchNorm buffers, on the host; ``perturb`` as
-    :func:`one_step`'s."""
+    the gradient the step applied and the BatchNorm buffers, on the host;
+    ``perturb`` as :func:`one_step`'s, its signs from ``seed``.
+    ``frozen_bn``: every BatchNorm in eval mode (running statistics), the
+    batch taken as it is (``augment=False``: (B, TRAIN_H, TRAIN_W))."""
     from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models.layers import BatchNorm
     from bts_tpu_torch.training.trainer import Trainer
 
-    model = perturbed(create_model(cfg, device), perturb)
-    trainer = Trainer(model, cfg, total_steps=100, device=device)
+    model = perturbed(create_model(cfg, device), perturb, seed)
+    trainer = Trainer(model, cfg, total_steps=100, device=device, augment=not frozen_bn)
+    if frozen_bn:
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.eval()
     loss = float(trainer.train_step(batch)["loss"])
     return {"loss": loss, "grads": named_grads(model), "ddp": trainer.ddp is not None,
             "buffers": {n: b.detach().cpu() for n, b in model.named_buffers()}}
@@ -1590,16 +1623,20 @@ def _step_record(cfg, batch, device, perturb: float = 0.0) -> dict:
 def _step_gaps(rec: dict, ref: dict) -> dict:
     """The train phase's comparison of two f32 steps, and the BatchNorm
     buffers.  With ``ref["probe_grads"]`` (the reference step from weights
-    moved by one ulp): each tensor's gap beside twice the probe's, and the
-    tensors over max(1e-3, that)."""
+    moved by one ulp, one or more seeded sign draws): each tensor's gap
+    beside twice the largest probe's, and the tensors over max(1e-3, that),
+    and the largest probe's gap of the whole gradient."""
     gaps = grad_gaps(rec["grads"], ref["grads"])
     bn = max((rec["buffers"][n] - b).abs().max().item() for n, b in ref["buffers"].items())
     out = {"loss": rec["loss"], "ref_loss": ref["loss"],
            "loss_rel_err": abs(rec["loss"] - ref["loss"]) / abs(ref["loss"]), "bn_buffers_max_abs_err": bn,
            **{k: gaps[k] for k in ("worst_gap", "worst", "global_gap", "tensors")}}
     if "probe_grads" in ref:
-        probe, mine = tensor_gaps(ref["probe_grads"], ref["grads"]), tensor_gaps(rec["grads"], ref["grads"])
-        out["ulp_probe"] = {"global_gap": grad_gaps(ref["probe_grads"], ref["grads"])["global_gap"],
+        probes = [tensor_gaps(p, ref["grads"]) for p in ref["probe_grads"]]
+        probe = {n: max(p[n] for p in probes) for n in ref["grads"]}
+        mine = tensor_gaps(rec["grads"], ref["grads"])
+        out["ulp_probe"] = {"probes": len(probes),
+                            "global_gap": max(grad_gaps(p, ref["grads"])["global_gap"] for p in ref["probe_grads"]),
                             "worst_gap": max(probe.values()),
                             "over_rule": {n: [g, probe[n]] for n, g in mine.items() if g > max(1e-3, 2 * probe[n])}}
     return out
@@ -1610,15 +1647,15 @@ def _quartiles(times) -> dict:
     return {"median": statistics.median(times), "q1": q[0], "q3": q[2], "n": len(times)}
 
 
-def _torchrun(nproc: int, mode: str, tmp: Path) -> list:
-    """This script as ``nproc`` ranks under torchrun (``train_ddp_rank
-    <mode> <tmp>``); returns each rank's record, by rank.  A failed rank
-    fails the launch and the phase."""
+def _torchrun(nproc: int, mode: str, tmp: Path, entry: str = "train_ddp_rank") -> list:
+    """This script as ``nproc`` ranks under torchrun (``<entry> <mode>
+    <tmp>``); returns each rank's record, by rank.  A failed rank fails the
+    launch and the phase."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
-           str(Path(__file__).resolve()), "train_ddp_rank", mode, str(tmp)]
+           str(Path(__file__).resolve()), entry, mode, str(tmp)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
                           cwd=Path(__file__).resolve().parent)
-    tag = '{"phase": "train_ddp_rank"'
+    tag = f'{{"phase": "{entry}"'
     recs = [json.loads(line[line.index(tag):]) for line in proc.stdout.splitlines() if tag in line]
     check(proc.returncode == 0 and len(recs) == nproc,
           f"torchrun {mode}: exit {proc.returncode}\\n{proc.stdout[-4000:]}\\n{proc.stderr[-6000:]}")
@@ -1650,7 +1687,7 @@ def phase_train_ddp(card: str, train_rec: dict) -> dict:
             batch = train_batch(b, H, W, seed=seed)
             ref = _step_record(cfg, batch, "cuda")
             if b == 4:
-                ref["probe_grads"] = _step_record(cfg, batch, "cuda", perturb=2**-23)["grads"]
+                ref["probe_grads"] = [_step_record(cfg, batch, "cuda", perturb=2**-23)["grads"]]
             torch.save(ref, tmp / f"ref_b{b}.pt")
         torch.cuda.empty_cache()
         _png_tree(tmp / "kitti", DDP_FRAMES, KITTI_FULL, "kitti", seed=12)
@@ -1807,6 +1844,270 @@ def ddp_rank(mode: str, tmp: str) -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+SPATIAL_TIMED = 8  # spatial: timed b16 steps at 2 ranks, after WARMUP_STEPS
+SPATIAL_FRAMES = 3  # spatial: frames of bts_test's synthetic KITTI tree
+SPATIAL_RULE = 2e-5  # spatial: max|banded - one process| / max|one process| of each forward output
+SPATIAL_PROBES = 3  # spatial: one-ulp weight probes of each f32 step's gradient (seeds 0, 1, 2)
+SPATIAL_LAYOUTS = {"h2": (2, 1), "hw4": (2, 2)}  # the rank launches: (--spatial_shards, --spatial_shards_w)
+
+
+def _serve_config(**kw):
+    from bts_tpu_torch.config import Config
+
+    return Config(**{**dict(mode="test", encoder="densenet161_bts", bts_size=512, max_depth=MAX_DEPTH,
+                            dataset="kitti", input_height=H, input_width=W, compute_dtype="float32", seed=0,
+                            device="cuda"), **kw})
+
+
+def _serve_frame() -> dict:
+    rng = np.random.default_rng(21)
+    return {"image": rng.integers(0, 256, (1, H, W, 3), dtype=np.uint8), "focal": np.array([FOCAL], np.float32)}
+
+
+def _frozen_batch() -> dict:
+    """The frozen-BatchNorm step's b2, at the training size as it is."""
+    return train_batch(2, TRAIN_H, TRAIN_W, seed=6)
+
+
+def _spatial_refs(cfg, tmp: Path) -> None:
+    """The one-process f32 b2 steps the spatial ranks are held to, each with
+    the same step from weights moved by one ulp (2^-23) under
+    SPATIAL_PROBES seeded signs: how far f32 rounding alone moves each
+    tensor of the gradient (through ReLU masks at zero, by up to ~1e-2)."""
+    for name, batch, frozen_bn in (("step", train_batch(2, H, W, seed=1), False),
+                                   ("frozen", _frozen_batch(), True)):
+        ref = _step_record(cfg, batch, "cuda", frozen_bn=frozen_bn)
+        ref["probe_grads"] = [_step_record(cfg, batch, "cuda", perturb=2**-23, seed=seed, frozen_bn=frozen_bn)["grads"]
+                              for seed in range(SPATIAL_PROBES)]
+        torch.save(ref, tmp / f"{name}_ref.pt")
+
+
+def _relu_flips(cfg, device, bands, worst) -> dict:
+    """Where the banded frozen-BatchNorm forward leaves the one-process one:
+    a fresh seeded model in eval mode on the frozen step's input, once on
+    the whole frame (this rank's band of every encoder BatchNorm output
+    kept) and once on the bands.  Every encoder BatchNorm output feeds a
+    ReLU; a sign that differs is a ReLU mask flipped by the bands' order of
+    sums.  Returns the flips on this rank's band, the largest |input| (whole
+    frame) of a flip, the layers with most flips, and the flips in the
+    layers of ``worst`` (tensor names)."""
+    from bts_tpu_torch.data.augment import eval_preprocess
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models.layers import BatchNorm
+    from bts_tpu_torch.parallel import spatial
+
+    b = _frozen_batch()
+    image = eval_preprocess(torch.as_tensor(b["image"]).to(device)).permute(0, 3, 1, 2)
+    focal = torch.as_tensor(b["focal"]).to(device)
+    model = create_model(cfg, device).eval()
+    whole, flips = {}, {}
+
+    def keep(name):
+        def hook(mod, args, out):
+            r0, r1, c0, c1 = bands.band(bands.height // out.shape[-2])
+            whole[name] = out[..., r0:r1, c0:c1].float()
+        return hook
+
+    def compare(name):
+        def hook(mod, args, out):
+            ref = whole.pop(name)
+            flip = (ref > 0) != (out.float() > 0)
+            flips[name] = (int(flip.sum()), ref[flip].abs().max().item() if flip.any() else 0.0)
+        return hook
+
+    bns = [(n, m) for n, m in model.named_modules() if n.startswith("encoder.") and isinstance(m, BatchNorm)]
+    for fn, use, x in ((keep, None, image), (compare, bands, bands.cut(image).contiguous())):
+        handles = [m.register_forward_hook(fn(n)) for n, m in bns]
+        with torch.no_grad(), spatial.use(use):
+            model(x, focal)
+        for h in handles:
+            h.remove()
+    layers = {n.rsplit(".", 2)[0] for n in worst}
+    return {"bn_outputs": len(flips), "flips": sum(f for f, _ in flips.values()),
+            "max_abs_input_at_flip": max(a for _, a in flips.values()),
+            "most": sorted(([n, *f] for n, f in flips.items() if f[0]), key=lambda e: -e[1])[:8],
+            "worst_layers": {n: list(f) for n, f in flips.items() if n.rsplit(".", 1)[0] in layers}}
+
+
+def _kitti_test_argv(tmp: Path, out: str) -> list:
+    return ["--device", "cuda", "--encoder", "densenet161_bts", "--bts_size", "512", "--dataset", "kitti",
+            "--max_depth", str(MAX_DEPTH), "--compute_dtype", "float32", "--batch_size", "1", "--do_kb_crop",
+            "--data_path", str(tmp / "kitti"), "--filenames_file", str(tmp / "kitti" / "split.txt"),
+            "--use_native_loader", "never", "--out_path", str(tmp / out)]
+
+
+def phase_spatial(card: str, train_rec: dict) -> dict:
+    """Spatial sharding: ranks started by torchrun from this script, all on
+    cuda:0 over gloo (halos staged through pinned host memory).  (a) config
+    2 serving (DenseNet-161, bts_size 512, 352x1216, b1, f32, KITTI focal)
+    at 2 ranks (H over 2) and 4 (2 x 2) against the one-process forward made
+    here on the same seeded weights, and bts_test --spatial_shards 2 on
+    synthetic KITTI frames against the one-process bts_test's PNGs; (b)
+    config 4 at 2 ranks: one f32 step at a global b2 against the one-process
+    step, the gradient with BatchNorm frozen, and timed bf16 b16 steps (remat
+    'layer').  Returns K1's and K2's launches in the ranks' main path (the
+    serving forwards and the timed steps)."""
+    import tempfile
+
+    from bts_tpu_torch.cli import bts_test
+    from bts_tpu_torch.models.bts import create_model, set_float32_precision
+
+    set_float32_precision()
+    rec = {"phase": "spatial", "card": card,
+           "config": "(a) config 2 serving, 352x1216 b1 f32; (b) config 4, 352x704: f32 b2, bf16 b16 remat layer",
+           "transport": "every rank on cuda:0: gloo on the host, halos staged through pinned host memory"}
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        # the one-process references on the same seeded weights and inputs
+        model = create_model(_serve_config(), "cuda")
+        torch.save([o.cpu() for o in _forward(_serve_config(), model, _serve_frame())], tmp / "serve_ref.pt")
+        del model
+        _spatial_refs(train_config(compute_dtype="float32", batch_size=2), tmp)
+        torch.cuda.empty_cache()
+        _png_tree(tmp / "kitti", SPATIAL_FRAMES, KITTI_FULL, "kitti", seed=13)
+        check(bts_test.main(_kitti_test_argv(tmp, "whole")) == 0, "bts_test, one process")
+        torch.cuda.empty_cache()
+
+        for name, (n, m) in SPATIAL_LAYOUTS.items():
+            t0 = time.perf_counter()
+            ranks = _torchrun(n * m, name, tmp, entry="spatial_rank")
+            rec[name] = {"ranks": ranks, "seconds": time.perf_counter() - t0}
+        from PIL import Image
+
+        pngs = {}
+        for f in sorted((tmp / "whole" / "raw").iterdir()):
+            a, b = (np.asarray(Image.open(d / "raw" / f.name), dtype=np.int64) for d in (tmp / "whole", tmp / "banded"))
+            pngs[f.name] = {"max_abs_units": int(np.abs(a - b).max()), "pixels_off": int((a != b).sum())}
+        rec["bts_test_pngs"] = pngs
+    rec["train_phase_same_call"] = {k: train_rec[k] for k in ("ms_per_step", "images_per_s", "peak_mem_gib")}
+    rec["frozen_relu_flips_h2"] = sum(r["frozen_bn_grads"]["relu_flips"]["flips"] for r in rec["h2"]["ranks"])
+    emit(rec)
+    check(len(pngs) == SPATIAL_FRAMES and all(p["max_abs_units"] <= 1 for p in pngs.values()),
+          f"bts_test --spatial_shards 2 against one process: {pngs}")
+    launches = {"lpg_fused": 0, "lpg_fused_bwd": 0}
+    for name, r in ((name, r) for name in SPATIAL_LAYOUTS for r in rec[name]["ranks"]):
+        s = r["serve"]
+        check(max(s["rel_err"]) <= SPATIAL_RULE and s["launches"] == {"lpg_fused": 3, "lpg_fused_bwd": 0},
+              f"{name} rank {r['rank']} serving: {s}")
+        launches["lpg_fused"] += s["launches"]["lpg_fused"]
+        if name != "h2":
+            continue
+        check(r["bts_test_launches"] == 3 * SPATIAL_FRAMES, f"rank {r['rank']} bts_test: {r['bts_test_launches']}")
+        # the steps: loss 1e-5 relative, BatchNorm statistics 1e-5, the
+        # whole gradient within the larger of 1e-3 (train-mode BatchNorm, as
+        # train_ddp) or 1e-4 (frozen) and twice the largest gap of the
+        # one-ulp probes; with BatchNorm frozen also each tensor within the
+        # larger of 1e-3 and twice its probes' largest (with train-mode
+        # BatchNorm, biases in denseblock4 move up to 2.8x their probes' on
+        # an H100: PERF.md)
+        for key, floor in (("step_f32_b2", 1e-3), ("frozen_bn_grads", 1e-4)):
+            g = r[key]
+            probe = g["ulp_probe"]
+            check(g["loss_rel_err"] <= 1e-5 and g["bn_buffers_max_abs_err"] <= 1e-5
+                  and g["global_gap"] <= max(floor, 2 * probe["global_gap"])
+                  and (key == "step_f32_b2" or not probe["over_rule"]), f"rank {r['rank']} {key}: {g}")
+        t = r["train_bf16_b16"]
+        steps = WARMUP_STEPS + SPATIAL_TIMED
+        check(t["launches"] == {"lpg_fused": 3 * steps, "lpg_fused_bwd": 3 * steps} and np.isfinite(t["loss"]),
+              f"rank {r['rank']} bf16 steps: {t}")
+        for k in launches:
+            launches[k] += t["launches"][k]
+    return launches
+
+
+def spatial_rank(name: str, tmp: str) -> int:
+    """One rank of the spatial phase, started by torchrun (``name`` in
+    SPATIAL_LAYOUTS); prints its record as one JSON line."""
+    import torch.distributed as dist
+
+    from bts_tpu_torch.cli import bts_test
+    from bts_tpu_torch.data.augment import eval_preprocess
+    from bts_tpu_torch.models.bts import create_model, set_float32_precision
+    from bts_tpu_torch.ops import lpg_cuda
+    from bts_tpu_torch.ops.lpg_cuda import lpg_fused, lpg_fused_bwd
+    from bts_tpu_torch.parallel import distributed as parallel
+    from bts_tpu_torch.parallel import spatial
+    from bts_tpu_torch.training.trainer import Trainer
+
+    tmp = Path(tmp)
+    n, m = SPATIAL_LAYOUTS[name]
+    flags = dict(spatial_shards=n, spatial_shards_w=m)
+    set_float32_precision()
+    lpg_cuda._lib()  # built by the parent under build/torch_kernels
+    cfg = _serve_config(**flags)
+    parallel.maybe_init_distributed(cfg)
+    device = parallel.local_device(torch.device("cuda"))
+    rank = parallel.rank()
+    rec = {"phase": "spatial_rank", "layout": name, "rank": rank, "world": parallel.world(),
+           "backend": dist.get_backend(), "device": str(device), "band": None}
+
+    def counts():
+        return {"lpg_fused": lpg_fused.launches, "lpg_fused_bwd": lpg_fused_bwd.launches}
+
+    try:
+        # (a) the serving forward on this rank's band, gathered into the frame
+        model = create_model(cfg, device)
+        bands = spatial.bands(spatial.grid(), H, W)
+        rec["band"] = bands.band(1)
+        frame = _serve_frame()
+        with torch.inference_mode():
+            image = eval_preprocess(torch.as_tensor(frame["image"]).to(device)).permute(0, 3, 1, 2)
+            focal = torch.as_tensor(frame["focal"]).to(device)
+            lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
+            with spatial.use(bands):
+                outs = model(bands.cut(image).contiguous(), focal)
+            torch.cuda.synchronize()
+            launched = counts()
+            whole = [bands.gather(o).cpu() for o in outs]
+        ref = torch.load(tmp / "serve_ref.pt")
+        rec["serve"] = {"launches": launched,
+                        "rel_err": [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(whole, ref)]}
+        del model, outs
+        torch.cuda.empty_cache()
+        if name == "h2":
+            lpg_fused.launches = 0
+            check(bts_test.main(_kitti_test_argv(tmp, "banded") + ["--spatial_shards", str(n)]) == 0, "bts_test")
+            rec["bts_test_launches"] = lpg_fused.launches
+            torch.cuda.empty_cache()
+            # (b) the f32 b2 step (both ranks take the global b2)
+            tcfg = train_config(compute_dtype="float32", batch_size=2, **flags)
+            step = _step_record(tcfg, train_batch(2, H, W, seed=1), device)
+            rec["step_f32_b2"] = _step_gaps(step, torch.load(tmp / "step_ref.pt"))
+            del step
+            # the same step with BatchNorm frozen, and the ReLU masks its bands flip
+            frozen = _step_record(tcfg, _frozen_batch(), device, frozen_bn=True)
+            g = rec["frozen_bn_grads"] = _step_gaps(frozen, torch.load(tmp / "frozen_ref.pt"))
+            del frozen
+            g["relu_flips"] = _relu_flips(tcfg, device, spatial.bands(spatial.grid(), TRAIN_H, TRAIN_W),
+                                          [n for n, _ in g["worst"]])
+            torch.cuda.empty_cache()
+            # timed bf16 b16 steps, remat 'layer': this rank's band of every frame
+            tcfg = train_config(**flags)
+            trainer = Trainer(create_model(tcfg, device), tcfg, total_steps=100, device=device)
+            batch = train_batch(TRAIN_B, H, W, seed=3)
+            torch.cuda.reset_peak_memory_stats()
+            lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
+            halo0, times = spatial.HALO_BYTES["sent"], []
+            for _ in range(WARMUP_STEPS + SPATIAL_TIMED):
+                t = time.perf_counter()
+                metrics = trainer.train_step(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            steps = WARMUP_STEPS + SPATIAL_TIMED
+            timing = _quartiles(times[WARMUP_STEPS:])
+            rec["train_bf16_b16"] = {
+                "launches": counts(), "steps": steps, "loss": float(metrics["loss"]), "ms_per_step": timing,
+                "images_per_s": TRAIN_B * 1e3 / timing["median"],
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "halo_bytes_per_step": (spatial.HALO_BYTES["sent"] - halo0) / steps}
+        emit(rec)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
 
 def _heads(*models) -> dict:
     """The raw reduction outputs of the last forward of any of ``models``, by head."""
@@ -2778,6 +3079,7 @@ def main() -> int:
     train_rec, kitti_model = phase_train(card)
     train_launches = train_rec["launches"]
     ddp_launches = phase_train_ddp(card, train_rec)
+    spatial_launches = phase_spatial(card, train_rec)
     phase_kernel_nyu(card)
     encoder_launches = phase_encoders(card)
     nyu_launches = phase_train_nyu(card)
@@ -2785,15 +3087,17 @@ def main() -> int:
     del kitti_model
     serving = phase_serving(card)
     input_launches = phase_input(card, train_rec)
-    paths = ("serve", "serve_tail", "train", "train_ddp", "op", "encoders", "train_nyu", "eval", "export",
-             "serve_http", "sequence", "input")
+    paths = ("serve", "serve_tail", "train", "train_ddp", "spatial", "op", "encoders", "train_nyu", "eval",
+             "export", "serve_http", "sequence", "input")
     by_path = {name: dict.fromkeys(paths, 0) for name, _, _, _ in KERNELS}
     by_path["lpg_fused"].update(serve=serve_launches, serve_tail=tail_launches["lpg_fused"],
                                 train=train_launches["lpg_fused"], train_ddp=ddp_launches["lpg_fused"],
                                 encoders=encoder_launches,
                                 train_nyu=nyu_launches["lpg_fused"], eval=eval_launches["lpg_fused"])
+    by_path["lpg_fused"]["spatial"] = spatial_launches["lpg_fused"]
     by_path["lpg_fused_bwd"].update(train=train_launches["lpg_fused_bwd"],
                                     train_ddp=ddp_launches["lpg_fused_bwd"],
+                                    spatial=spatial_launches["lpg_fused_bwd"],
                                     train_nyu=nyu_launches["lpg_fused_bwd"], eval=eval_launches["lpg_fused_bwd"])
     for name, n in input_launches.items():
         by_path[name]["input"] = n
@@ -2836,4 +3140,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["train_ddp_rank"]:  # a rank of the train_ddp phase, started by torchrun
         sys.exit(ddp_rank(*sys.argv[2:]))
+    if sys.argv[1:2] == ["spatial_rank"]:  # a rank of the spatial phase, started by torchrun
+        sys.exit(spatial_rank(*sys.argv[2:]))
     sys.exit(main())

@@ -3,16 +3,22 @@ must fit a learnable scene.  Ports tests/test_convergence.py's
 test_training_fits_synthetic_scene and
 test_densenet_remat_fits_synthetic_scene with their scenes, recipes, step
 counts and asserts, through create_model and training.Trainer (the
-augmentation off, as there).  Both are ``slow``: the tier-1 command's
-``-m 'not slow'`` leaves them out.  Their spatial variant waits for the
-port's spatial sharding.
+augmentation off, as there), and test_densenet_spatial_remat_fits_synthetic_scene
+in four gloo ranks.  All are ``slow``: the tier-1 command's ``-m 'not slow'``
+leaves them out.
 
     python -m pytest -m slow tests/test_torch_port_convergence.py
 """
 
+import datetime
+import os
+import socket
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from bts_tpu_torch.config import Config
 from bts_tpu_torch.data.augment import eval_preprocess
@@ -86,3 +92,45 @@ def test_densenet_remat_fits_synthetic_scene(monkeypatch):
     assert model.encoder.remat
     assert np.isfinite(last)
     assert last < first / 3.0, f"loss did not fit: {first:.4f} -> {last:.4f}"
+
+
+TINY_DENSENET = dict(growth_rate=8, block_config=(2, 2, 2, 2), num_init_features=16)
+SPATIAL_STEPS = 200
+
+
+def _spatial_fit_rank(rank, world, port, out):
+    """One of four ranks of the spatial fit: the tiny DenseNet registered
+    here (the rank is a new process), the frame's quarter rows, 200 steps;
+    rank 0 writes the first and the last loss."""
+    from bts_tpu_torch.models import encoders
+    from bts_tpu_torch.models.encoders.densenet import DenseNet
+    from bts_tpu_torch.parallel import distributed as parallel
+
+    torch.set_num_threads(1)
+    encoders.ENCODERS["tiny_densenet_bts"] = dict(cls=DenseNet, kwargs=TINY_DENSENET,
+                                                  channels=DenseNet(**TINY_DENSENET).channels)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dist.init_process_group("gloo", rank=rank, world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        cfg = _config(encoder="tiny_densenet_bts", remat=True, spatial_shards=world)
+        parallel.maybe_init_distributed(cfg)
+        _, _, _, first, last = _fit(cfg, SPATIAL_STEPS)
+        if rank == 0:
+            torch.save((first, last), out)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.slow
+def test_densenet_spatial_remat_fits_synthetic_scene(tmp_path):
+    """--spatial_shards 4 (the 64-row frame in bands of 16 rows; of one row
+    or none at H/32) with --remat through the DenseNet path: the loss falls
+    below a third of its first value in 200 steps, as in the JAX test."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_spatial_fit_rank, args=(4, port, str(tmp_path / "losses.pt")), nprocs=4, join=True)
+    first, last = torch.load(tmp_path / "losses.pt")
+    assert np.isfinite(last)
+    assert last < first / 3.0, f"loss did not fit: {first:.4f} -> {last:.4f}"
+

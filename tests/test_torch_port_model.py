@@ -289,12 +289,25 @@ def test_seeded_init_is_flax_like_and_reproducible():
 
 
 @pytest.mark.parametrize(
-    "change,match",
-    [({"spatial_shards_w": 2}, "ROADMAP"), ({"spatial_shards": 2}, "ROADMAP")],
+    "change,error,match",
+    [({"input_height": "63"}, SystemExit, "input_height 63 not divisible by --spatial_shards 2"),
+     ({"input_width": "97", "spatial_shards_w": "2"}, SystemExit,
+      "input_width 97 not divisible by --spatial_shards_w 2"),
+     ({"input_height": "40"}, ValueError, r"sharded 2-way .* input_height/\(8\*shards\)")],
 )
-def test_unported_options_raise(change, match):
-    with pytest.raises(NotImplementedError, match=match):
-        create_model(Config(bts_size=128, **change))
+def test_indivisible_spatial_input_rejected(tmp_path, change, error, match):
+    """bts_main refuses a spatial split the frames or the LPG cells do not
+    tile (the port of tests/test_cli_spatial.py's test), before it starts
+    anything."""
+    from bts_tpu_torch.cli import bts_main
+
+    (tmp_path / "split.txt").write_text("a.png b.png 518.8\n")
+    args = {"input_height": "64", "input_width": "96", "spatial_shards": "2", **change}
+    with pytest.raises(error, match=match):
+        bts_main.main(["--mode", "train", "--model_name", "bad", "--encoder", "mobilenetv2_bts", "--dataset", "nyu",
+                       "--max_depth", "10", "--data_path", str(tmp_path), "--gt_path", str(tmp_path),
+                       "--filenames_file", f"{tmp_path}/split.txt", "--batch_size", "2", "--device", "cpu",
+                       "--log_directory", f"{tmp_path}/runs", *[a for k, v in args.items() for a in (f"--{k}", v)]])
 
 
 PORT_MODULES = (
@@ -309,7 +322,7 @@ PORT_MODULES = (
     "bts_tpu_torch.evaluation", "bts_tpu_torch.evaluation.metrics", "bts_tpu_torch.evaluation.best",
     "bts_tpu_torch.models.encoders.resnet", "bts_tpu_torch.models.encoders.mobilenetv2",
     "bts_tpu_torch.utils.serving", "bts_tpu_torch.cli.bts_export", "bts_tpu_torch.cli.bts_convert",
-    "bts_tpu_torch.parallel", "bts_tpu_torch.parallel.distributed",
+    "bts_tpu_torch.parallel", "bts_tpu_torch.parallel.distributed", "bts_tpu_torch.parallel.spatial",
     "bts_tpu_torch.data.records", "bts_tpu_torch.data.native_loader", "bts_tpu_torch.tools.make_records",
     "bts_tpu_torch.ops.resize", "bts_tpu_torch.tools.from_orbax", "bts_tpu_torch.tools.flagship_smoke",
     "bts_tpu_torch.tools.upconv_algos",
