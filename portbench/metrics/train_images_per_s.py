@@ -1,0 +1,8 @@
+"""train_images_per_s (images/s, host clock): images of the training steps
+completed in the window, over the window's seconds."""
+
+from portbench.harness import stats
+
+
+def read(rec):
+    return stats.rate(rec["images"], rec["window_s"]) if rec["kind"] == "train" else None
