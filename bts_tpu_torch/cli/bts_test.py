@@ -46,19 +46,22 @@ from bts_tpu_torch.data.augment import eval_preprocess
 from bts_tpu_torch.models.bts import set_float32_precision
 from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.parallel import spatial
+from bts_tpu_torch.utils.profiling import span
 from bts_tpu_torch.utils.weights import restore_model
 
 
 def predict(cfg, model, batches: Iterable[dict], device) -> Iterator[Tuple[torch.Tensor, ...]]:
     """Forward each batch; yields the five outputs, each (B, 1, H, W) f32 on
-    ``device``.  KITTI batches are scaled by their focal length."""
+    ``device``.  KITTI batches are scaled by their focal length.  Each
+    batch's work is one ``bts.predict`` span, closed before the yield."""
     set_float32_precision()
     use_focal = cfg.dataset == "kitti"
-    for batch in batches:
-        with torch.inference_mode():
-            images = torch.as_tensor(batch["image"]).to(device)
-            image = eval_preprocess(images).permute(0, 3, 1, 2).contiguous()
-            focal = torch.as_tensor(batch["focal"]).to(device) if use_focal else None
+    for i, batch in enumerate(batches):
+        with span("bts.predict", i), torch.inference_mode():
+            with span("bts.input"):
+                images = torch.as_tensor(batch["image"]).to(device)
+                image = eval_preprocess(images).permute(0, 3, 1, 2).contiguous()
+                focal = torch.as_tensor(batch["focal"]).to(device) if use_focal else None
             outs = model(image, focal)
         yield outs
 
@@ -72,17 +75,18 @@ def predict_banded(cfg, model, batches: Iterable[dict], device, n_data: int) -> 
     set_float32_precision()
     grid = spatial.grid()
     use_focal = cfg.dataset == "kitti"
-    for batch in batches:
+    for i, batch in enumerate(batches):
         b = len(batch["image"])
         if grid.d >= n_data:
             yield 0, None
             continue
         rows = slice(grid.d * b // n_data, (grid.d + 1) * b // n_data)
-        with torch.inference_mode():
-            images = torch.as_tensor(batch["image"][rows]).to(device)
-            bands = spatial.bands(grid, images.shape[1], images.shape[2])
-            image = bands.cut(eval_preprocess(images).permute(0, 3, 1, 2)).contiguous()
-            focal = torch.as_tensor(batch["focal"][rows]).to(device) if use_focal else None
+        with span("bts.predict", i), torch.inference_mode():
+            with span("bts.input"):
+                images = torch.as_tensor(batch["image"][rows]).to(device)
+                bands = spatial.bands(grid, images.shape[1], images.shape[2])
+                image = bands.cut(eval_preprocess(images).permute(0, 3, 1, 2)).contiguous()
+                focal = torch.as_tensor(batch["focal"][rows]).to(device) if use_focal else None
             with spatial.use(bands):
                 outs = model(image, focal)
             outs = tuple(bands.gather(o) for o in outs)

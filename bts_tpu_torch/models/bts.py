@@ -60,6 +60,7 @@ from bts_tpu_torch.ops import tail_cuda
 from bts_tpu_torch.ops.lpg import lpg_scaled_from_raw, lpg_strided, plane_from_spherical
 from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.parallel import spatial
+from bts_tpu_torch.utils.profiling import span
 
 KITTI_FOCAL = 715.0873
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -145,13 +146,15 @@ class BtsDecoder(nn.Module):
     def _lpg(self, reduc: torch.Tensor, k: int) -> torch.Tensor:
         """Full-res LPG map (B, 1, H, W) f32 from a raw (B, 3, h, w) head;
         the (B, h, w, 3) view goes to the kernel with no copy."""
-        raw = reduc.permute(0, 2, 3, 1)
-        return lpg_scaled_from_raw(raw, k, self.max_depth, self.use_pallas)[:, None]
+        with span("bts.lpg"):
+            raw = reduc.permute(0, 2, 3, 1)
+            return lpg_scaled_from_raw(raw, k, self.max_depth, self.use_pallas)[:, None]
 
     def _guidance(self, reduc: torch.Tensor, k: int, stride: int) -> torch.Tensor:
         """The LPG map at every ``stride``-th pixel, in the compute dtype."""
-        plane = plane_from_spherical(reduc.permute(0, 2, 3, 1), self.max_depth)
-        return (lpg_strided(plane, k, stride) / self.max_depth)[:, None].to(self.dtype)
+        with span("bts.lpg"):
+            plane = plane_from_spherical(reduc.permute(0, 2, 3, 1), self.max_depth)
+            return (lpg_strided(plane, k, stride) / self.max_depth)[:, None].to(self.dtype)
 
     def _tail(self, iconv2, reduc2, reduc4, reduc8):
         """The fused tail: the three LPG maps as phase planes (K5, no K1),
@@ -162,11 +165,12 @@ class BtsDecoder(nn.Module):
         plain = self.use_pallas == "never"
         phase = tail_cuda.lpg_phase_planes_plain if plain else tail_cuda.lpg_phase_planes
         tail = tail_cuda.fused_tail_plain if plain else tail_cuda.fused_tail
-        d8ph, d4ph, d2ph = (phase(r.permute(0, 2, 3, 1), k)
-                            for r, k in ((reduc8, 8), (reduc4, 4), (reduc2, 2)))
-        # both versions round iconv2 to bf16 (the kernel as it stages it)
-        fin_ph, d1ph = tail(iconv2.permute(0, 2, 3, 1), d2ph, d4ph, d8ph, tail_cuda.tail_params(self))
-        return tuple(tail_cuda.interleave2x2(p)[:, None] for p in (d8ph, d4ph, d2ph, d1ph, fin_ph))
+        with span("bts.lpg"):
+            d8ph, d4ph, d2ph = (phase(r.permute(0, 2, 3, 1), k)
+                                for r, k in ((reduc8, 8), (reduc4, 4), (reduc2, 2)))
+            # both versions round iconv2 to bf16 (the kernel as it stages it)
+            fin_ph, d1ph = tail(iconv2.permute(0, 2, 3, 1), d2ph, d4ph, d8ph, tail_cuda.tail_params(self))
+            return tuple(tail_cuda.interleave2x2(p)[:, None] for p in (d8ph, d4ph, d2ph, d1ph, fin_ph))
 
     def forward(self, feats, focal: Optional[torch.Tensor] = None):
         skip2, skip4, skip8, skip16, bottleneck = feats
@@ -238,7 +242,10 @@ class BtsModel(nn.Module):
         self.dtype = dtype
 
     def forward(self, image: torch.Tensor, focal: Optional[torch.Tensor] = None):
-        return self.decoder(self.encoder(image.to(self.dtype)), focal)
+        with span("bts.encoder"):
+            feats = self.encoder(image.to(self.dtype))
+        with span("bts.decoder"):
+            return self.decoder(feats, focal)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

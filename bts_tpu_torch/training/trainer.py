@@ -70,6 +70,8 @@ from bts_tpu_torch.ops.silog import default_mask, silog_loss
 from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.parallel import spatial
 from bts_tpu_torch.training.optimizer import freeze, make_optimizer
+from bts_tpu_torch.utils import profiling
+from bts_tpu_torch.utils.profiling import span
 
 
 def step_generator(seed: int, step: int, micro: Optional[int] = None) -> torch.Generator:
@@ -135,26 +137,31 @@ class Trainer:
         if cfg.debug_nans:
             install_nan_checks(model)
 
-    def _loss(self, images, depths, focal, gen: torch.Generator):
+    def _loss(self, images, depths, focal, rows: slice, gen: torch.Generator):
+        """The silog loss of the microbatch ``rows`` and its final depth."""
         cfg = self.cfg
-        if self.augment:
-            images, depths = augment_batch(
-                images, depths, gen, out_h=cfg.input_height, out_w=cfg.input_width,
-                dataset=cfg.dataset, degree=cfg.degree, do_random_rotate=cfg.do_random_rotate,
-                share=(parallel.data_rank(), parallel.data_world()),
-            )
-        else:
-            images, depths = eval_preprocess(images), depths.float()
-        bands = None
-        if self.grid is not None:
-            bands = spatial.bands(self.grid, images.shape[1], images.shape[2])
-            images, depths = bands.cut(images, (1, 2)), bands.cut(depths, (1, 2))
+        with span("bts.input"):
+            images, depths, focal = images[rows], depths[rows], focal[rows]
+            if self.augment:
+                images, depths = augment_batch(
+                    images, depths, gen, out_h=cfg.input_height, out_w=cfg.input_width,
+                    dataset=cfg.dataset, degree=cfg.degree, do_random_rotate=cfg.do_random_rotate,
+                    share=(parallel.data_rank(), parallel.data_world()),
+                )
+            else:
+                images, depths = eval_preprocess(images), depths.float()
+            bands = None
+            if self.grid is not None:
+                bands = spatial.bands(self.grid, images.shape[1], images.shape[2])
+                images, depths = bands.cut(images, (1, 2)), bands.cut(depths, (1, 2))
+            images = images.permute(0, 3, 1, 2)
         model = self.model if self.ddp is None else self.ddp
         with spatial.use(bands):
-            outs = model(images.permute(0, 3, 1, 2), focal if cfg.dataset == "kitti" else None)
-        final = outs[4][:, 0]
-        loss = silog_loss(final, depths, default_mask(depths, cfg.dataset), cfg.variance_focus,
-                          group=self.group)
+            outs = model(images, focal if cfg.dataset == "kitti" else None)
+        with span("bts.loss"):
+            final = outs[4][:, 0]
+            loss = silog_loss(final, depths, default_mask(depths, cfg.dataset), cfg.variance_focus,
+                              group=self.group)
         return loss, final
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -162,43 +169,49 @@ class Trainer:
         'depth': (B, H, W) f32, 'focal': (B,)}; returns device scalars
         (loss, depth_mean, grad_norm) and the learning rate applied.  In a
         data-parallel run the batch is this rank's rows of the global batch
-        (``parallel.rank_rows``)."""
-        dev = self.device
-        images = torch.as_tensor(batch["image"]).to(dev, non_blocking=True)
-        depths = torch.as_tensor(batch["depth"]).to(dev, non_blocking=True)
-        focal = torch.as_tensor(batch["focal"]).to(dev, non_blocking=True)
-        accum = max(1, int(self.cfg.grad_accum_steps))
-        if images.shape[0] % accum:
-            raise ValueError(
-                f"batch_size {images.shape[0]} not divisible by --grad_accum_steps {accum}")
-        mb = images.shape[0] // accum
-        self.optimizer.zero_grad(set_to_none=True)
-        loss_sum = depth_sum = 0.0
-        for i in range(accum):
-            sl = slice(i * mb, (i + 1) * mb)
-            gen = step_generator(self.cfg.seed, self.step, None if accum == 1 else i)
-            last = i == accum - 1
-            with contextlib.ExitStack() as scope:
-                if self.ddp is not None and not last:
-                    scope.enter_context(self.ddp.no_sync())
-                if self.cfg.debug_nans:
-                    scope.enter_context(torch.autograd.set_detect_anomaly(True))
-                loss, final = self._loss(images[sl], depths[sl], focal[sl], gen)
-                (loss / accum).backward()
-            if self.grid is not None and last:
-                self._reduce_grads()
-            loss_sum = loss_sum + loss.detach()
-            depth_sum = depth_sum + final.detach().mean()
-        if self.group is not None:
-            dist.all_reduce(depth_sum, group=self.group)
-            depth_sum = depth_sum / self.world
-        grad_norm = torch.nn.utils.get_total_norm([p.grad for p in self.params if p.grad is not None])
-        lr = self.scheduler.get_last_lr()[0]
-        self.optimizer.step()
-        self.scheduler.step()
-        self.step += 1
-        return {"loss": loss_sum / accum, "depth_mean": depth_sum / accum,
-                "grad_norm": grad_norm, "learning_rate": lr}
+        (``parallel.rank_rows``).  The step is one ``bts.train_step`` span."""
+        with span("bts.train_step", self.step):
+            dev = self.device
+            with span("bts.input"):
+                images = torch.as_tensor(batch["image"]).to(dev, non_blocking=True)
+                depths = torch.as_tensor(batch["depth"]).to(dev, non_blocking=True)
+                focal = torch.as_tensor(batch["focal"]).to(dev, non_blocking=True)
+            accum = max(1, int(self.cfg.grad_accum_steps))
+            if images.shape[0] % accum:
+                raise ValueError(
+                    f"batch_size {images.shape[0]} not divisible by --grad_accum_steps {accum}")
+            mb = images.shape[0] // accum
+            with span("bts.optimizer"):
+                self.optimizer.zero_grad(set_to_none=True)
+            loss_sum = depth_sum = 0.0
+            for i in range(accum):
+                gen = step_generator(self.cfg.seed, self.step, None if accum == 1 else i)
+                last = i == accum - 1
+                with contextlib.ExitStack() as scope:
+                    if self.ddp is not None and not last:
+                        scope.enter_context(self.ddp.no_sync())
+                    if self.cfg.debug_nans:
+                        scope.enter_context(torch.autograd.set_detect_anomaly(True))
+                    loss, final = self._loss(images, depths, focal, slice(i * mb, (i + 1) * mb), gen)
+                    with span("bts.backward"):
+                        (loss / accum).backward()
+                        if self.grid is not None and last:
+                            self._reduce_grads()
+                with span("bts.loss"):  # the step's logged loss and mean depth
+                    loss_sum = loss_sum + loss.detach()
+                    depth_sum = depth_sum + final.detach().mean()
+                    if last:
+                        if self.group is not None:
+                            dist.all_reduce(depth_sum, group=self.group)
+                            depth_sum = depth_sum / self.world
+                        logged = {"loss": loss_sum / accum, "depth_mean": depth_sum / accum}
+            with span("bts.optimizer"):
+                grad_norm = torch.nn.utils.get_total_norm([p.grad for p in self.params if p.grad is not None])
+                lr = self.scheduler.get_last_lr()[0]
+                self.optimizer.step()
+                self.scheduler.step()
+            self.step += 1
+            return {**logged, "grad_norm": grad_norm, "learning_rate": lr}
 
     def _reduce_grads(self) -> None:
         """The gradient of the global loss under spatial sharding: every
@@ -255,18 +268,22 @@ class Trainer:
         ``log_freq`` steps, ``on_save(step)`` every ``save_freq``,
         ``on_eval(step)`` every ``eval_freq``; ``should_stop(step)`` ends the
         loop after a step (preemption).  ``profile_dir``: a ``torch.profiler``
-        trace of steps 10..15, closed in ``finally`` when the loop ends early.
+        trace of steps 10..15 (``utils/profiling.window``, which holds the
+        ``bts.*`` spans) in ``profile_dir/trace.json``, closed and written in
+        ``finally`` when the loop ends early.
         """
         cfg = self.cfg
+        profiled = contextlib.ExitStack()
         prof = None
         try:
             for i, batch in enumerate(batches):
                 if i >= num_steps:
                     break
                 if profile_dir is not None and i == 10:
-                    prof = _start_profile(self.device)
+                    prof = profiled.enter_context(profiling.window(self.device))
                 if prof is not None and i == 15:
-                    prof = _stop_profile(prof, profile_dir, self.device)
+                    _write_profile(profiled, prof, profile_dir)
+                    prof = None
                 metrics = self.train_step(batch)
                 step = self.step
                 if on_metrics is not None and (step % cfg.log_freq == 0 or i == 0):
@@ -280,7 +297,7 @@ class Trainer:
                     break
         finally:
             if prof is not None:
-                _stop_profile(prof, profile_dir, self.device)
+                _write_profile(profiled, prof, profile_dir)
             # an infinite train stream: closing it stops the loader's threads
             close = getattr(batches, "close", None)
             if close is not None:
@@ -288,23 +305,10 @@ class Trainer:
         return self.step
 
 
-def _start_profile(device):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
-    prof.__enter__()
-    return prof
-
-
-def _stop_profile(prof, profile_dir: str, device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    prof.__exit__(None, None, None)
+def _write_profile(profiled: contextlib.ExitStack, prof, profile_dir: str) -> None:
+    """Close the profiler window and write its chrome trace."""
+    profiled.close()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"[bts_tpu_torch] profile written to {path}")
-    return None
