@@ -33,6 +33,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from bts_tpu_torch.ops import bn_cuda
 from bts_tpu_torch.ops.resize import fold_up2x_kernel, upsample_nearest_2x
 from bts_tpu_torch.parallel import spatial
 
@@ -207,7 +208,12 @@ class BatchNorm(nn.Module):
     sums of x and x^2 and the count go through one autograd all-reduce, and
     every rank folds the same global moments into its running statistics.
     Every rank must then run the same train-mode forwards in the same order,
-    a checkpoint's recompute included."""
+    a checkpoint's recompute included.
+
+    Eval mode under no grad, on an NCHW-contiguous f32 or bf16 CUDA tensor
+    of under 2**31 elements, runs the same arithmetic as one kernel
+    (``ops/bn_cuda.py``, K7), the ReLU included where asked; every other
+    case runs it as PyTorch ops (``bn_cuda.normalize``)."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -228,8 +234,12 @@ class BatchNorm(nn.Module):
         sums = dist_fn.all_reduce(sums, group=self.process_group)
         return sums[:c] / sums[-1], sums[c:-1] / sums[-1]
 
-    def forward(self, x):
-        shape = (1, -1, 1, 1)
+    def forward(self, x, relu: bool = False):
+        """The BatchNorm of x, then ReLU where ``relu`` (the ReLU that follows
+        the module at DenseNet's and ResNet's sites, fused into K7)."""
+        if (not (self.training or torch.is_grad_enabled()) and x.is_cuda and x.dtype in bn_cuda.DTYPES
+                and x.is_contiguous() and bn_cuda.fits(x)):
+            return bn_cuda.bn_act(x, self.running_mean, self.running_var, self.weight, self.bias, BN_EPS, relu)
         xf = x.float()
         if self.training:
             mean, mean_sq = self._moments(xf)
@@ -241,9 +251,7 @@ class BatchNorm(nn.Module):
                     self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        return bn_cuda.normalize(xf, mean, var, self.weight, self.bias, BN_EPS, x.dtype, relu)
 
 
 def _phase_conv_transpose_2x(x, weight, bias):
@@ -351,10 +359,8 @@ class AtrousConv(nn.Module):
         self.conv2 = Conv2d(features * 2, features, 3, dilation=dilation, dtype=dtype)
 
     def forward(self, x):
-        if self.first_bn is not None:
-            x = self.first_bn(x)
-        x = self.conv1(F.relu(x))
-        return self.conv2(F.relu(self.bn(x)))
+        x = F.relu(x) if self.first_bn is None else self.first_bn(x, relu=True)
+        return self.conv2(self.bn(self.conv1(x), relu=True))
 
 
 class Reduction1x1(nn.Module):

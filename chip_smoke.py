@@ -10,11 +10,12 @@ sequence) and its public LPG op once on one NVIDIA GPU and check them.
 Phases, one JSON line each, then the result:
 
 1. device     - torch and CUDA versions, the card's name and power limit.
-2. build      - builds both sources of csrc/ (nvcc, sm_90a), one nvcc each,
-                started together: lpg_fused.cu (K1 the fused LPG head
+2. build      - builds the three sources of csrc/ (nvcc, sm_90a), one nvcc
+                each, started together: lpg_fused.cu (K1 the fused LPG head
                 forward, K2 its backward, K3/K4 the public LPG op's forward
-                and backward, K5 the head as phase planes) and fused_tail.cu
-                (K6 the fused decoder tail), and a profiling build of
+                and backward, K5 the head as phase planes), fused_tail.cu
+                (K6 the fused decoder tail) and batchnorm.cu (K7 the
+                eval-mode BatchNorm), and a profiling build of
                 fused_tail.cu with -DK6_STAGE_CLOCKS (K6's stage clocks);
                 ptxas's registers and spills of every K1-K4 instance and of
                 K6, and the count of HMMA (tensor-core) instructions in the
@@ -73,6 +74,19 @@ Phases, one JSON line each, then the result:
                 SM cycles per block in each stage (staging, upconv,
                 reduction chain, iconv1, final conv) from the profiling
                 build.
+7b. bn       - K7, the eval-mode BatchNorm (+ReLU) of csrc/batchnorm.cu, on
+                the 175 BatchNorm calls of a DenseNet-161 BTS bf16 serving
+                forward at 352x1216 (their shapes and ReLUs from forward
+                pre-hooks; the forward must launch K7 once per call), at b1
+                and b8: equal to the ATen chain at every call, bit for bit;
+                the summed device ms of all of them (torch.profiler, each
+                window holding every launch the calls make, or dropped) for
+                K7 through its op, the plain chain and F.batch_norm +
+                F.relu (the yardstick the port never calls),
+                against their byte bound (4 bytes an element), K7 also by
+                plane size; the host's microseconds to issue one call on
+                norm5's input through the module, the op, the launch alone,
+                the chain and F.batch_norm.
 8. upconv     - the five UpConvs of DenseNet-161 BTS (bts_size 512) at the
                 b1 352x1216 serving shapes and the b16 352x704 config-4
                 shapes, f32 and bf16: the fused form (one stride-2
@@ -264,16 +278,18 @@ Phases, one JSON line each, then the result:
                 one step in a subprocess with a NaN in the weight of
                 encoder.features.denseblock2.denselayer1.conv1: exits non-zero
                 with FloatingPointError naming it.
-20. result    - {"kernels": [...]}: all six kernels, launches by main path
+20. result    - {"kernels": [...]}: all seven kernels, launches by main path
                 (serve, serve_tail, train, train_ddp, spatial, op,
                 encoders, train_nyu, eval, export, serve_http, sequence,
                 input; each path's
-                counts set to 0 just before it runs), and ms,
+                counts set to 0 just before it runs, K7's checked against
+                the BatchNorm calls that take it), and ms,
                 plain_ms, bound_ms per the unit
                 named in "per" (K1, K2: a training step's three heads, bf16
                 raw; K3: the three serving heads; K4: the three config-4
                 heads, bf16 plane; K5: a fused-tail forward's three heads;
-                K6: one 352x1216 forward), with kernel_only_ms,
+                K6: one 352x1216 forward; K7: the 175 BatchNorms of one
+                352x1216 b1 forward, with library_ms), with kernel_only_ms,
                 share_of_bound and (K3, K5) floor_ms where measured, the
                 nvidia-smi line, and the
                 contract line {"ok": true, ...} last.
@@ -306,7 +322,8 @@ TAIL_SHAPES = [(1, 176, 608), (2, 16, 152)]  # (B, Hh, W2): 352x1216 b1, and a r
 RTOL, ATOL_SCALE, DENOM_MIN = 2e-5, 2e-6, 1e-3
 GRAD_RTOL, GRAD_ATOL_SCALE = 2e-4, 2e-5
 TAIL_MEAN, TAIL_MAX, TAIL_OFF_SHARE = 2e-5, 5e-2, 0.01  # K6's rule (tests/test_torch_port_tail.py)
-SOURCES = {"lpg_fused": "bts_tpu_torch/csrc/lpg_fused.cu", "fused_tail": "bts_tpu_torch/csrc/fused_tail.cu"}
+SOURCES = {"lpg_fused": "bts_tpu_torch/csrc/lpg_fused.cu", "fused_tail": "bts_tpu_torch/csrc/fused_tail.cu",
+           "batchnorm": "bts_tpu_torch/csrc/batchnorm.cu"}
 # (wrapper, key, library, the TPU kernel it replaces: kernel body, with the pallas_call that launches it)
 KERNELS = [
     ("lpg_fused", "K1", "lpg_fused", "bts_tpu/ops/lpg_pallas.py:376"),  # _fused_fwd_kernel, _fused_fwd_call :443
@@ -315,6 +332,7 @@ KERNELS = [
     ("lpg_plane_bwd", "K4", "lpg_fused", "bts_tpu/ops/lpg_pallas.py:125"),  # _bwd_kernel, _bwd_call :206
     ("lpg_phase_planes", "K5", "lpg_fused", "bts_tpu/ops/tail_pallas.py:127"),  # _phase_lpg_kernel, call :153
     ("fused_tail", "K6", "fused_tail", "bts_tpu/ops/tail_pallas.py:208"),  # _tail_kernel, fused_tail :402
+    ("bn_act", "K7", "batchnorm", "none: the JAX package leaves BatchNorm to XLA, which fuses it"),
 ]
 H, W, FOCAL, MAX_DEPTH = 352, 1216, 721.5377, 80.0
 TRAIN_H, TRAIN_W, TRAIN_B = 352, 704, 16
@@ -999,6 +1017,212 @@ def set_upconv(model, form: str) -> None:
             m.deterministic = form == "fused" and m.conv.dtype == torch.float32
 
 
+DENSENET161_BTS_BNS = 175  # BatchNorms of a DenseNet-161 BTS forward: 161 encoder, 9 dense ASPP, 5 decoder
+K7_PATHS: dict = {}  # K7's launches on each main path of the result (k7_counted)
+
+
+class K7Run:
+    """K7's launches over one main-path run (``launches``), the BatchNorm
+    calls in it that take K7 (``calls``), and ``expect``, which a caller sets
+    where the run calls an exported program: its graph calls no module."""
+
+    def __init__(self):
+        self.launches, self.calls, self.expect = 0, 0, None
+
+
+@contextlib.contextmanager
+def k7_counted(path: str | None = None, expect: int | None = None):
+    """Counts K7's launches over one main-path run from 0 just before it,
+    and checks them: one for each BatchNorm call that takes K7 (eval mode,
+    no grad, an NCHW-contiguous f32 or bf16 CUDA x of K7's size), counted
+    around BatchNorm.forward, or ``expect`` (``run.expect``) where given, as
+    0 for the timed train steps, which are not slowed by the count.  Adds the
+    launches to K7_PATHS[path]."""
+    from bts_tpu_torch.models.layers import BatchNorm
+    from bts_tpu_torch.ops import bn_cuda
+
+    run, forward = K7Run(), BatchNorm.forward
+    run.expect = expect
+
+    def counted(module, x, relu=False):
+        if (not (module.training or torch.is_grad_enabled()) and x.is_cuda and x.dtype in bn_cuda.DTYPES
+                and x.is_contiguous() and bn_cuda.fits(x)):
+            run.calls += 1
+        return forward(module, x, relu)
+
+    if expect is None:
+        BatchNorm.forward = counted
+    bn_cuda.bn_act.launches = 0
+    try:
+        yield run
+    finally:
+        BatchNorm.forward = forward
+    run.launches = bn_cuda.bn_act.launches
+    want = run.calls if run.expect is None else run.expect
+    check(run.launches == want, f"{path}: {run.launches} K7 launches, not {want}")
+    if path is not None:
+        K7_PATHS[path] = K7_PATHS.get(path, 0) + run.launches
+
+
+def bn_calls() -> list:
+    """(per-image shape, relu) of each BatchNorm call of a DenseNet-161 BTS
+    bf16 serving forward at 352x1216, in order (forward pre-hooks), after
+    checking that the forward launched K7 once per BatchNorm."""
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models.layers import BatchNorm
+    from bts_tpu_torch.ops import bn_cuda
+
+    cfg = Config(mode="test", encoder="densenet161_bts", bts_size=512, max_depth=MAX_DEPTH, dataset="kitti",
+                 input_height=H, input_width=W, compute_dtype="bfloat16", seed=0)
+    model = create_model(cfg, "cuda")
+    calls = []
+
+    def hook(module, args, kwargs):
+        calls.append((tuple(args[0].shape[1:]), bool(kwargs.get("relu", False))))
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in model.modules() if isinstance(m, BatchNorm)]
+    before = bn_cuda.bn_act.launches
+    with torch.inference_mode():
+        model(torch.rand(1, 3, H, W, device="cuda"), torch.tensor([FOCAL], device="cuda"))
+    torch.cuda.synchronize()
+    launched = bn_cuda.bn_act.launches - before
+    for handle in handles:
+        handle.remove()
+    check(launched == len(calls) == len(handles) == DENSENET161_BTS_BNS,
+          f"K7: {launched} launches for {len(calls)} BatchNorm calls of {len(handles)} modules")
+    return calls
+
+
+def host_us_per_call(fn, n: int = 400) -> float:
+    """Host microseconds to issue one call of ``fn`` (its enqueue): ``n``
+    calls on a tensor small enough that the card keeps up with the host,
+    timed before the synchronise."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def kernels_ms(fn, expect: int, windows: int = 3) -> dict:
+    """The summed device ms of the kernels one call of ``fn`` launches
+    (torch.profiler, linked by correlation id to the window's ops), the
+    median over ``windows`` windows that each hold all ``expect`` of its
+    launches.  Late in a long process a window drops the records of the
+    first launch in it, op and kernel, every time (PERF.md): a sleep kernel
+    launched first takes that place and is not counted.  A window with
+    another count is dropped and counted; under ``windows`` whole ones in
+    ``windows`` + 3 tries fail.  A sum of durations leaves out the card's
+    idle gaps, which the host sets."""
+    from bts_tpu_torch.utils.profiling import window
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    fn()
+    sums, counts = [], []
+    for _ in range(windows + 3):
+        with window() as prof:
+            torch.cuda._sleep(1)
+            fn()
+        records = prof.profiler.kineto_results.events()
+        ops = {r.correlation_id() for r in records if r.device_type() == cpu and r.linked_correlation_id() == 0}
+        ops.discard(0)
+        kernels = [r.duration_ns() for r in records if r.device_type() == cuda and not r.is_user_annotation()
+                   and r.linked_correlation_id() in ops and not r.name().startswith(("Memcpy", "Memset"))
+                   and "spin_kernel" not in r.name()]
+        counts.append(len(kernels))
+        if len(kernels) == expect:
+            sums.append(sum(kernels) * 1e-6)
+            if len(sums) == windows:
+                break
+    check(len(sums) == windows, f"{len(sums)} of {len(counts)} profiler windows held all {expect} launches: {counts}")
+    return {"ms": statistics.median(sums), "launches": expect, "windows_dropped": len(counts) - windows}
+
+
+def phase_bn(card: str) -> dict:
+    """K7 on the BatchNorm calls of a 352x1216 serving forward at b1 and
+    b8: equal to the chain at each call; the summed device ms and launches
+    of all of them (K7, the plain chain, F.batch_norm + F.relu as a
+    yardstick) against their byte bound, K7 also by plane size; the host's
+    cost of one call of each route."""
+    import torch.nn.functional as F
+
+    from bts_tpu_torch.models.layers import BN_EPS, BatchNorm
+    from bts_tpu_torch.ops import bn_cuda
+
+    calls = bn_calls()
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def params(c):
+        return (torch.randn(c, generator=g, device="cuda") * 0.5, torch.rand(c, generator=g, device="cuda") + 0.1,
+                1 + 0.2 * torch.randn(c, generator=g, device="cuda"), 0.2 * torch.randn(c, generator=g, device="cuda"))
+
+    ps = [params(shape[0]) for shape, _ in calls]
+    relus = [relu for _, relu in calls]
+    routes = {
+        "kernel": lambda x, p, r: bn_cuda.bn_act(x, *p, BN_EPS, r),  # the op, as BatchNorm calls it
+        "launch": lambda x, p, r: bn_cuda._k7_cuda(x, *p, BN_EPS, r),  # its CUDA implementation alone
+        "plain": lambda x, p, r: bn_cuda.bn_act_plain(x, *p, BN_EPS, r),
+        "library": lambda x, p, r: (F.relu if r else (lambda y: y))(
+            F.batch_norm(x, p[0], p[1], p[2], p[3], False, 0.0, BN_EPS)),
+    }
+    out = {"calls": len(calls), "relu": sum(relus)}
+    # the launches of one pass over all the calls: K7 one a call; the chain
+    # eight and its F.relu; F.batch_norm two (cuDNN) and its F.relu
+    expect = {"kernel": len(calls), "plain": 8 * len(calls) + sum(relus), "library": 2 * len(calls) + sum(relus)}
+    for b in (1, 8):
+        xs = [(torch.randn((b,) + shape, generator=g, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+              for shape, _ in calls]
+        with torch.inference_mode():
+            differ = sum(int((bn_cuda._k7_cuda(x, *p, BN_EPS, r) != bn_cuda.bn_act_plain(x, *p, BN_EPS, r)).sum())
+                         for x, p, r in zip(xs, ps, relus))
+            check(differ == 0, f"K7 at b{b}: {differ} elements differ from the chain")
+            elements = sum(x.numel() for x in xs)
+            rec = {"phase": "bn", "card": card, "batch": b, "per": "all BatchNorm calls of one forward",
+                   "elements_per_image": elements // b, "elements_differing": differ,
+                   **bound(4 * elements, 4 * elements)}
+            for name in ("kernel", "plain", "library"):
+                got = kernels_ms(lambda route=routes[name]: [route(x, p, r) for x, p, r in zip(xs, ps, relus)],
+                                 expect[name])
+                rec[f"{name}_ms"], rec[f"{name}_launches"] = got["ms"], got["launches"]
+                rec[f"{name}_windows_dropped"] = got["windows_dropped"]
+            rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+            by_plane = {}
+            for x, p, r in zip(xs, ps, relus):
+                by_plane.setdefault(x.shape[2] * x.shape[3], []).append((x, p, r))
+            rec["by_plane"] = {}
+            for hw, group in sorted(by_plane.items(), reverse=True):
+                n = sum(x.numel() for x, _, _ in group)
+                got = kernels_ms(lambda group=group: [bn_cuda.bn_act(x, *p, BN_EPS, r) for x, p, r in group],
+                                 len(group))
+                row = {"calls": len(group), "elements": n, **bound(4 * n, 4 * n), "kernel_ms": got["ms"],
+                       "windows_dropped": got["windows_dropped"]}
+                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+                rec["by_plane"][hw] = row
+        emit(rec)
+        out[f"b{b}"] = rec
+        del xs
+        torch.cuda.empty_cache()
+    # the host's cost of one call, on norm5's input (b1, 2208 x 11 x 38):
+    # the module, the op, the launch alone (the op less its dispatch), the
+    # chain with its ReLU and F.batch_norm with F.relu
+    (shape, _), p = calls[160], ps[160]
+    x = torch.randn((1,) + shape, generator=g, device="cuda").to(torch.bfloat16)
+    bn = BatchNorm(shape[0]).to("cuda").eval()
+    with torch.inference_mode():
+        host = {"module_us": host_us_per_call(lambda: bn(x, relu=True)),
+                **{f"{name}_us": host_us_per_call(lambda route=route: route(x, p, True))
+                   for name, route in routes.items()}}
+    out["host_per_call"] = host
+    emit({"phase": "bn_host", "card": card, "shape": [1, *shape], **host})
+    return out
+
+
 def phase_upconv(card: str) -> None:
     """The five UpConvs of DenseNet-161 BTS at the b1 352x1216 serving
     shapes and the b16 352x704 config-4 shapes, f32 and bf16: the fused form
@@ -1154,10 +1378,11 @@ def phase_slice(card: str) -> int:
     # the main path: every count to 0, one forward per compute dtype
     lpg_fused.launches = 0
     outs = {}
-    for dt in cfgs:
-        before = lpg_fused.launches
-        outs[dt] = (_forward(cfgs[dt], models[dt], batch), dict(heads))
-        check(lpg_fused.launches - before == 3, f"{dt}: {lpg_fused.launches - before} launches, not 3")
+    with k7_counted("serve", expect=2 * DENSENET161_BTS_BNS):
+        for dt in cfgs:
+            before = lpg_fused.launches
+            outs[dt] = (_forward(cfgs[dt], models[dt], batch), dict(heads))
+            check(lpg_fused.launches - before == 3, f"{dt}: {lpg_fused.launches - before} launches, not 3")
     launches = lpg_fused.launches
 
     for dt, cfg in cfgs.items():
@@ -1293,11 +1518,12 @@ def phase_slice_tail(card: str) -> dict:
     for c in counters.values():
         c.launches = 0
     outs = {}
-    for dt in cfgs:
-        before = counts()
-        outs[dt] = (_forward(cfgs[dt], models[dt], batch), dict(heads))
-        n = {k: v - before[k] for k, v in counts().items()}
-        check(n == {"lpg_fused": 0, "lpg_phase_planes": 3, "fused_tail": 1}, f"{dt}: launches {n}")
+    with k7_counted("serve_tail", expect=2 * DENSENET161_BTS_BNS):
+        for dt in cfgs:
+            before = counts()
+            outs[dt] = (_forward(cfgs[dt], models[dt], batch), dict(heads))
+            n = {k: v - before[k] for k, v in counts().items()}
+            check(n == {"lpg_fused": 0, "lpg_phase_planes": 3, "fused_tail": 1}, f"{dt}: launches {n}")
     launches = counts()
 
     # the device kernels of one bf16 fused-tail forward: under each K5 op its
@@ -1511,13 +1737,14 @@ def phase_train(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
     times, losses = [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(batch)
-        torch.cuda.synchronize()
-        if i >= WARMUP_STEPS:
-            times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
+    with k7_counted("train", expect=0):  # train mode keeps the chain
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            if i >= WARMUP_STEPS:
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
     launches = {"lpg_fused": lpg_fused.launches, "lpg_fused_bwd": lpg_fused_bwd.launches}
     steps = WARMUP_STEPS + TIMED_STEPS
     rec["steps"] = steps
@@ -1722,6 +1949,7 @@ def phase_train_ddp(card: str, train_rec: dict) -> dict:
         check(r["launches"] == {"lpg_fused": 3 * steps, "lpg_fused_bwd": 3 * steps}, f"rank {r['rank']}: {r}")
     held = sum(r["zero_vs_replicated"]["optimizer_state_bytes"] for r in b)
     check(held == b[0]["zero_vs_replicated"]["replicated_state_bytes"], f"ZeRO-1 shards hold {held} bytes")
+    K7_PATHS["train_ddp"] = a["k7_launches"]
     return a["launches"]
 
 
@@ -1786,14 +2014,15 @@ def ddp_rank(mode: str, tmp: str) -> int:
                     "--log_directory", str(tmp / "runs"), "--model_name", "c4_ddp", "--save_freq", "1000"]
             torch.cuda.reset_peak_memory_stats()
             lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
-            check(bts_main.main(argv) == 0, "bts_main")
+            with k7_counted() as k7:  # the summary forward's BatchNorms that take K7
+                check(bts_main.main(argv) == 0, "bts_main")
             launches = {"lpg_fused": lpg_fused.launches, "lpg_fused_bwd": lpg_fused_bwd.launches}
             # 3 K1 + 3 K2 per step, and 3 K1 for the step-1 summary forward
             check(launches == {"lpg_fused": 3 * DDP_STEPS + 3, "lpg_fused_bwd": 3 * DDP_STEPS},
                   f"{launches} in {DDP_STEPS} steps")
             check(len(times) == DDP_STEPS, f"{len(times)} steps")
             timing = _quartiles(times[WARMUP_STEPS:])
-            rec.update(launches=launches, steps=DDP_STEPS, ms_per_step=timing,
+            rec.update(launches=launches, k7_launches=k7.launches, steps=DDP_STEPS, ms_per_step=timing,
                        images_per_s=TRAIN_B * 1e3 / timing["median"],
                        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         else:
@@ -1993,6 +2222,7 @@ def phase_spatial(card: str, train_rec: dict) -> dict:
         check(max(s["rel_err"]) <= SPATIAL_RULE and s["launches"] == {"lpg_fused": 3, "lpg_fused_bwd": 0},
               f"{name} rank {r['rank']} serving: {s}")
         launches["lpg_fused"] += s["launches"]["lpg_fused"]
+        K7_PATHS["spatial"] = K7_PATHS.get("spatial", 0) + s["k7_launches"]
         if name != "h2":
             continue
         check(r["bts_test_launches"] == 3 * SPATIAL_FRAMES, f"rank {r['rank']} bts_test: {r['bts_test_launches']}")
@@ -2057,13 +2287,13 @@ def spatial_rank(name: str, tmp: str) -> int:
             image = eval_preprocess(torch.as_tensor(frame["image"]).to(device)).permute(0, 3, 1, 2)
             focal = torch.as_tensor(frame["focal"]).to(device)
             lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
-            with spatial.use(bands):
+            with k7_counted() as k7, spatial.use(bands):
                 outs = model(bands.cut(image).contiguous(), focal)
             torch.cuda.synchronize()
             launched = counts()
             whole = [bands.gather(o).cpu() for o in outs]
         ref = torch.load(tmp / "serve_ref.pt")
-        rec["serve"] = {"launches": launched,
+        rec["serve"] = {"launches": launched, "k7_launches": k7.launches,
                         "rel_err": [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(whole, ref)]}
         del model, outs
         torch.cuda.empty_cache()
@@ -2091,11 +2321,12 @@ def spatial_rank(name: str, tmp: str) -> int:
             torch.cuda.reset_peak_memory_stats()
             lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
             halo0, times = spatial.HALO_BYTES["sent"], []
-            for _ in range(WARMUP_STEPS + SPATIAL_TIMED):
-                t = time.perf_counter()
-                metrics = trainer.train_step(batch)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t) * 1e3)
+            with k7_counted(expect=0):  # train mode keeps the chain
+                for _ in range(WARMUP_STEPS + SPATIAL_TIMED):
+                    t = time.perf_counter()
+                    metrics = trainer.train_step(batch)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
             steps = WARMUP_STEPS + SPATIAL_TIMED
             timing = _quartiles(times[WARMUP_STEPS:])
             rec["train_bf16_b16"] = {
@@ -2137,54 +2368,55 @@ def phase_encoders(card: str) -> int:
              "focal": np.array([FOCAL], np.float32)}
     small = {"image": batch["image"][:, :64, :96], "focal": batch["focal"]}
     lpg_fused.launches = 0
-    for name in NEW_ENCODERS:
-        cfg = Config(mode="test", encoder=name, bts_size=512, max_depth=MAX_DEPTH, dataset="kitti",
-                     input_height=H, input_width=W, compute_dtype="float32", seed=0)
-        model = create_model(cfg, "cuda")
-        heads = _heads(model)
-        rec = {"phase": "encoders", "encoder": name, "card": card}
-        before = lpg_fused.launches
-        outs = _forward(cfg, model, batch)
-        check(lpg_fused.launches - before == 3, f"{name}: {lpg_fused.launches - before} K1 launches, not 3")
-        check(all(tuple(o.shape) == (1, 1, H, W) for o in outs), f"{name}: shapes")
-        check(bool(torch.isfinite(outs[4]).all()), f"{name}: non-finite depth")
-        model.decoder.use_pallas = "never"
-        plain = _forward(cfg, model, batch)
-        model.decoder.use_pallas = cfg.use_pallas
-        rows = []
-        for i, (head, k) in enumerate((("reduc8x8", 8), ("reduc4x4", 4), ("reduc2x2", 2))):
-            row = compare_lpg(outs[i][:, 0], plain[i][:, 0], fused_denominator(heads[head].permute(0, 2, 3, 1), k))
-            check(row["within_rule"], f"{name}: LPG {k} kernel vs never {row}")
-            rows.append(dict(row, k=k))
-        rec["lpg_kernel_vs_never"] = rows
-        rec["final_vs_never_max_rel_err"] = ((outs[4] - plain[4]).abs() / plain[4].abs()).max().item()
-        check(bool(torch.allclose(outs[4], plain[4], rtol=1e-5, atol=0.0)), f"{name}: final vs never")
-        gpu_small = _forward(cfg, model, small)
-        cpu_small = next(predict(cfg, model.to("cpu"), [small], "cpu"))
-        worst = 0.0
-        for g, c in zip(gpu_small, cpu_small):
-            g, scale = g.cpu(), c.abs().max().item()
-            check(bool(torch.allclose(g, c, rtol=2e-4, atol=2e-4 * scale)), f"{name}: f32 GPU vs CPU at 64x96")
-            worst = max(worst, (g - c).abs().max().item() / scale)
-        rec["gpu_vs_cpu_64x96_max_err_over_scale"] = worst
-        del model, heads
-        cfg16 = cfg.replace(compute_dtype="bfloat16")
-        model = create_model(cfg16, "cuda")
-        for _ in range(2):
-            _forward(cfg16, model, batch)
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(ENCODER_FORWARDS):
-            t0 = time.perf_counter()
-            _forward(cfg16, model, batch)
-            times.append((time.perf_counter() - t0) * 1e3)
-        rec["bf16_ms_per_forward"] = {"median": statistics.median(times), "min": min(times),
-                                      "max": max(times), "n": len(times)}
-        rec["bf16_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        emit(rec)
-        del model
-        torch.cuda.empty_cache()
-    # per encoder: the f32 forward, the 64x96 one, 2 warm-up and the timed bf16 ones
+    with k7_counted("encoders"):  # every forward of the phase, as K1's count
+        for name in NEW_ENCODERS:
+            cfg = Config(mode="test", encoder=name, bts_size=512, max_depth=MAX_DEPTH, dataset="kitti",
+                         input_height=H, input_width=W, compute_dtype="float32", seed=0)
+            model = create_model(cfg, "cuda")
+            heads = _heads(model)
+            rec = {"phase": "encoders", "encoder": name, "card": card}
+            before = lpg_fused.launches
+            outs = _forward(cfg, model, batch)
+            check(lpg_fused.launches - before == 3, f"{name}: {lpg_fused.launches - before} K1 launches, not 3")
+            check(all(tuple(o.shape) == (1, 1, H, W) for o in outs), f"{name}: shapes")
+            check(bool(torch.isfinite(outs[4]).all()), f"{name}: non-finite depth")
+            model.decoder.use_pallas = "never"
+            plain = _forward(cfg, model, batch)
+            model.decoder.use_pallas = cfg.use_pallas
+            rows = []
+            for i, (head, k) in enumerate((("reduc8x8", 8), ("reduc4x4", 4), ("reduc2x2", 2))):
+                row = compare_lpg(outs[i][:, 0], plain[i][:, 0], fused_denominator(heads[head].permute(0, 2, 3, 1), k))
+                check(row["within_rule"], f"{name}: LPG {k} kernel vs never {row}")
+                rows.append(dict(row, k=k))
+            rec["lpg_kernel_vs_never"] = rows
+            rec["final_vs_never_max_rel_err"] = ((outs[4] - plain[4]).abs() / plain[4].abs()).max().item()
+            check(bool(torch.allclose(outs[4], plain[4], rtol=1e-5, atol=0.0)), f"{name}: final vs never")
+            gpu_small = _forward(cfg, model, small)
+            cpu_small = next(predict(cfg, model.to("cpu"), [small], "cpu"))
+            worst = 0.0
+            for g, c in zip(gpu_small, cpu_small):
+                g, scale = g.cpu(), c.abs().max().item()
+                check(bool(torch.allclose(g, c, rtol=2e-4, atol=2e-4 * scale)), f"{name}: f32 GPU vs CPU at 64x96")
+                worst = max(worst, (g - c).abs().max().item() / scale)
+            rec["gpu_vs_cpu_64x96_max_err_over_scale"] = worst
+            del model, heads
+            cfg16 = cfg.replace(compute_dtype="bfloat16")
+            model = create_model(cfg16, "cuda")
+            for _ in range(2):
+                _forward(cfg16, model, batch)
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(ENCODER_FORWARDS):
+                t0 = time.perf_counter()
+                _forward(cfg16, model, batch)
+                times.append((time.perf_counter() - t0) * 1e3)
+            rec["bf16_ms_per_forward"] = {"median": statistics.median(times), "min": min(times),
+                                          "max": max(times), "n": len(times)}
+            rec["bf16_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            emit(rec)
+            del model
+            torch.cuda.empty_cache()
+        # per encoder: the f32 forward, the 64x96 one, 2 warm-up and the timed bf16 ones
     check(lpg_fused.launches == 3 * len(NEW_ENCODERS) * (4 + ENCODER_FORWARDS),
           f"{lpg_fused.launches} K1 launches in the encoders phase")
     return lpg_fused.launches
@@ -2274,13 +2506,14 @@ def phase_train_nyu(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
     times, losses = [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        t0 = time.perf_counter()
-        metrics = trainer.train_step(batch)
-        torch.cuda.synchronize()
-        if i >= WARMUP_STEPS:
-            times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
+    with k7_counted("train_nyu", expect=0):  # train mode keeps the chain
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            if i >= WARMUP_STEPS:
+                times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
     launches = {"lpg_fused": lpg_fused.launches, "lpg_fused_bwd": lpg_fused_bwd.launches}
     steps = WARMUP_STEPS + TIMED_STEPS
     check(launches == {"lpg_fused": 3 * steps, "lpg_fused_bwd": 3 * steps},
@@ -2364,7 +2597,7 @@ def phase_eval(card: str, kitti_model) -> dict:
 
     scratch = Path(__file__).resolve().parent / "build"
     scratch.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp, contextlib.ExitStack() as k7:
         tmp = Path(tmp)
         split = str(_png_tree(tmp / "nyu", EVAL_FRAMES, (NYU_H, NYU_W), "nyu", seed=10))
         data = str(tmp / "nyu")
@@ -2378,6 +2611,7 @@ def phase_eval(card: str, kitti_model) -> dict:
                 "--min_depth_eval", "1e-3", "--max_depth_eval", "10", "--device", "cuda"]
         bts_main.online_eval = counted_eval
         lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
+        k7.enter_context(k7_counted("eval"))  # to the end of the phase, as K1's count
         try:
             check(bts_main.main(argv) == 0, "bts_main")
         finally:
@@ -2679,7 +2913,8 @@ def phase_serving(card: str) -> dict:
             serve(x, f)  # warm-up
             torch.cuda.synchronize()
             reset()
-            got = serve(x, f)
+            with k7_counted("export", expect=DENSENET161_BTS_BNS):
+                got = serve(x, f)
             torch.cuda.synchronize()
             n = counts()
             for key in counters:
@@ -2731,7 +2966,10 @@ def phase_serving(card: str) -> dict:
                 n = SERVE_REQUESTS if backend == "exported" else SERVE_B
                 serve_requests(server, frames[:SERVE_B], focals, eager_depth, plain_depth, rule_m)  # warm-up
                 reset()
-                http[backend] = serve_requests(server, frames[:n], focals, eager_depth, plain_depth, rule_m)
+                with k7_counted("serve_http") as k7:
+                    http[backend] = serve_requests(server, frames[:n], focals, eager_depth, plain_depth, rule_m)
+                    if backend == "exported":  # the artifact's graph calls no module
+                        k7.expect = DENSENET161_BTS_BNS * http[backend]["device_calls"]
                 for key, v in counts().items():
                     launches["serve_http"][key] += v
             finally:
@@ -2755,14 +2993,15 @@ def phase_serving(card: str) -> dict:
         # focal 715.0873 scales bts_test's depth by exactly 1, as bts_sequence applies none
         (seq_dir / "split.txt").write_text("".join(f"rgb/{i:010d}.png None 715.0873\n" for i in range(SEQ_FRAMES)))
         run = common + ["--checkpoint_path", str(ckpt), "--do_kb_crop", "--batch_size", str(SERVE_B)]
+        batches = -(-SEQ_FRAMES // SERVE_B)
         reset()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as out:
+        with contextlib.redirect_stdout(io.StringIO()) as out, k7_counted("sequence"):
             check(bts_sequence.main(run + ["--image_path", str(seq_dir / "rgb"), "--out_path", str(tmp / "seq")]) == 0,
                   "bts_sequence")
         seq_s = time.perf_counter() - t0
         launches["sequence"] = counts()
-        batches = -(-SEQ_FRAMES // SERVE_B)
+        check(K7_PATHS["sequence"] == DENSENET161_BTS_BNS * batches, f"bts_sequence: {K7_PATHS['sequence']} K7")
         check(launches["sequence"]["lpg_fused"] == 3 * batches, f"bts_sequence launches {launches['sequence']}")
         # bts_test on the same frames through the kernels and through their
         # plain versions (--use_pallas never)
@@ -2809,7 +3048,7 @@ def _input_argv(split: str, choice: str, runs: Path, name: str, steps: int, data
 
 def _bts_main_run(argv: list) -> dict:
     """bts_main in this process; each step timed on the host clock around
-    the step and a synchronize, with its loss; K1/K2 launches counted from 0."""
+    the step and a synchronize, with its loss; K1/K2 and K7 launches counted from 0."""
     from bts_tpu_torch.cli import bts_main
     from bts_tpu_torch.ops.lpg_cuda import lpg_fused, lpg_fused_bwd
     from bts_tpu_torch.training.trainer import Trainer
@@ -2832,11 +3071,13 @@ def _bts_main_run(argv: list) -> dict:
     lpg_fused.launches, lpg_fused_bwd.launches = 0, 0
     t0 = time.perf_counter()
     try:
-        check(bts_main.main(argv) == 0, f"bts_main {argv}")
+        with k7_counted() as k7:  # the summary forward's BatchNorms that take K7
+            check(bts_main.main(argv) == 0, f"bts_main {argv}")
     finally:
         Trainer.train_step = train_step
     return {"seconds": time.perf_counter() - t0, "losses": losses, "times": times,
             "launches": {"lpg_fused": lpg_fused.launches, "lpg_fused_bwd": lpg_fused_bwd.launches},
+            "k7_launches": k7.launches,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
@@ -2973,7 +3214,8 @@ def phase_input(card: str, train_rec: dict) -> dict:
             timing = _quartiles(r["times"][WARMUP_STEPS:])
             train[name] = {"use_native_loader": choice, "first_loss": r["losses"][0], "losses": r["losses"],
                            "ms_per_step": timing, "images_per_s": TRAIN_B * 1e3 / timing["median"],
-                           "peak_mem_gib": r["peak_mem_gib"], "launches": r["launches"], "seconds": r["seconds"],
+                           "peak_mem_gib": r["peak_mem_gib"], "launches": r["launches"],
+                           "k7_launches": r["k7_launches"], "seconds": r["seconds"],
                            "first_two_step_ms": r["times"][:2]}
             emit({"phase": "input_train", "run": name, **train[name]})
             check(len(r["losses"]) == INPUT_STEPS and all(np.isfinite(r["losses"])), f"{name}: {r['losses']}")
@@ -3004,7 +3246,8 @@ def phase_input(card: str, train_rec: dict) -> dict:
         r = _bts_main_run(_input_argv(split, "never", tmp / "runs", "debug_nans", 2, data) + ["--debug_nans"])
         ref = train["png_never"]
         dn = {"ms_first_two_steps": r["times"], "ms_first_two_steps_without": ref["first_two_step_ms"],
-              "losses": r["losses"], "losses_without": ref["losses"][:2], "launches": r["launches"]}
+              "losses": r["losses"], "losses_without": ref["losses"][:2], "launches": r["launches"],
+              "k7_launches": r["k7_launches"]}
         check(r["losses"][0] == ref["first_loss"] and np.isfinite(r["losses"]).all(), f"--debug_nans: {dn}")
         # the hooks alone, autograd's anomaly mode left off: which of the two costs
         detect = torch.autograd.set_detect_anomaly
@@ -3033,27 +3276,39 @@ def phase_input(card: str, train_rec: dict) -> dict:
     emit(rec)
     launches = {k: sum(t["launches"][k] for t in train.values()) + dn["launches"][k] + h["launches"][k]
                 for k in ("lpg_fused", "lpg_fused_bwd")}
+    K7_PATHS["input"] = sum(t["k7_launches"] for t in train.values()) + dn["k7_launches"] + h["k7_launches"]
     torch.cuda.empty_cache()
     return launches
+
+
+def k7_numbers(per_bn: dict) -> dict:
+    """K7's row of the result: the b1 forward's BatchNorms (phase_bn, which
+    checked every element equal to the chain's)."""
+    b1 = per_bn["b1"]
+    return {"max_abs_err": 0.0, "ms": b1["kernel_ms"],
+            "plain_ms": b1["plain_ms"], "library_ms": b1["library_ms"], "bound_ms": b1["bound_ms"],
+            "bound_by": b1["bound_by"], "share_of_bound": b1["share_of_bound"],
+            "per": "352x1216 b1 serving forward: its 175 BatchNorms, bf16 (library: F.batch_norm + F.relu)"}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
-    from bts_tpu_torch.ops import _build, lpg_cuda, tail_cuda  # fails outside a checkout of the repo
+    from bts_tpu_torch.ops import _build, bn_cuda, lpg_cuda, tail_cuda  # fails outside a checkout of the repo
 
     card = card_line()
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(), "card": card})
-    # one nvcc per library, started together: the two sources and K6's
+    # one nvcc per library, started together: the three sources and K6's
     # profiling build with stage clocks
     jobs = [(name, ()) for name in SOURCES] + [("fused_tail", ("K6_STAGE_CLOCKS",))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda job: _build.build(*job), jobs))
-    built, clocks_lib = dict(zip(SOURCES, libs)), libs[2].path
+    built, clocks_lib = dict(zip(SOURCES, libs)), libs[-1].path
     lpg_cuda._lib()
     tail_cuda._lib()
+    bn_cuda._lib()
     # K6 does its upconv and iconv1 on the tensor cores: HMMA in its SASS
     # (one instance for bf16 iconv2, one for f32)
     k6 = {"hmma_instructions": sass_count(built["fused_tail"].path, "fused_tail_kernel", "HMMA"),
@@ -3063,7 +3318,7 @@ def main() -> int:
     lpg = {demangle(n): r for kernel in ("lpg_fwd_kernel", "lpg_bwd_kernel")
            for n, r in ptxas_report(built["lpg_fused"].log, kernel).items()}
     emit({"phase": "build", "sources": SOURCES, "kernels": {key: name for name, key, _, _ in KERNELS},
-          "seconds": {**{n: b.seconds for n, b in built.items()}, "fused_tail_stage_clocks": libs[2].seconds},
+          "seconds": {**{n: b.seconds for n, b in built.items()}, "fused_tail_stage_clocks": libs[-1].seconds},
           "lpg_ptxas": lpg, "fused_tail_kernel": k6})
     check(len(k6["hmma_instructions"]) == 2 and all(n > 0 for n in k6["hmma_instructions"].values()),
           f"fused_tail_kernel without HMMA instructions: {k6['hmma_instructions']}")
@@ -3073,6 +3328,7 @@ def main() -> int:
     per_step = phase_kernel_bwd(card)
     per_op, op_launches = phase_kernel_lpg(card, floors)
     per_tail = phase_tail(card, clocks_lib, floors)
+    per_bn = phase_bn(card)
     phase_upconv(card)
     serve_launches = phase_slice(card)
     tail_launches = phase_slice_tail(card)
@@ -3090,6 +3346,7 @@ def main() -> int:
     paths = ("serve", "serve_tail", "train", "train_ddp", "spatial", "op", "encoders", "train_nyu", "eval",
              "export", "serve_http", "sequence", "input")
     by_path = {name: dict.fromkeys(paths, 0) for name, _, _, _ in KERNELS}
+    by_path["bn_act"].update(K7_PATHS)
     by_path["lpg_fused"].update(serve=serve_launches, serve_tail=tail_launches["lpg_fused"],
                                 train=train_launches["lpg_fused"], train_ddp=ddp_launches["lpg_fused"],
                                 encoders=encoder_launches,
@@ -3120,6 +3377,7 @@ def main() -> int:
         "K5": dict(per_tail["K5"], per="fused-tail forward: the three 352x1216 b1 heads"),
         "K6": dict(per_tail["K6"], per="fused-tail forward, 352x1216 b1 (ms: through the wrapper, "
                                        "packed weights cached)"),
+        "K7": k7_numbers(per_bn),
     }
     result = []
     for name, key, lib, replaces in KERNELS:
@@ -3127,7 +3385,7 @@ def main() -> int:
         result.append({"name": name, "route": "cuda", "source": SOURCES[lib], "replaces": replaces,
                        "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
                        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-                       "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+                       "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
                        "per": t["per"], **{key: t[key] for key in ("kernel_only_ms", "share_of_bound", "floor_ms")
                                            if key in t}})
     emit({"kernels": result})
