@@ -39,6 +39,7 @@ import torch
 
 from bts_tpu_torch.config import parse_args, require_device, write_config_sidecar
 from bts_tpu_torch.models.bts import create_model
+from bts_tpu_torch.models.encoders import resolved_pad
 from bts_tpu_torch.utils.checkpoint import CheckpointManager
 from bts_tpu_torch.utils.torch_converter import split_full_state_dict
 from bts_tpu_torch.utils.weights import load_state_dict
@@ -82,7 +83,7 @@ def main(argv=None) -> int:
 
     weights = {k: v.cpu() for k, v in model.state_dict().items()}
     CheckpointManager(out).save(0, {"model": weights, "step": 0})
-    write_config_sidecar(cfg, out)
+    write_config_sidecar(cfg, out, resolved_pad(cfg))
     print(f"[bts_convert] wrote weights-only checkpoint + geometry sidecar to {out}")
     return 0
 

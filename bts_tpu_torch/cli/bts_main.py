@@ -75,6 +75,7 @@ from bts_tpu_torch.data.dataloader import BtsDataLoader
 from bts_tpu_torch.evaluation.best import BestCheckpoints, BestTracker
 from bts_tpu_torch.evaluation.metrics import METRIC_NAMES
 from bts_tpu_torch.models.bts import create_model, set_float32_precision
+from bts_tpu_torch.models.encoders import check_bands, resolved_pad
 from bts_tpu_torch.ops.lpg import check_divisible
 from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.training.trainer import Trainer
@@ -84,10 +85,12 @@ from bts_tpu_torch.utils.summary import SummaryWriter
 
 def check_spatial(cfg) -> None:
     """The augmented frames are what is split into bands: their geometry must
-    tile the N x M bands exactly, and the LPG heads' cells too."""
+    tile the N x M bands exactly, and the LPG heads' cells too; the encoder
+    must run on bands."""
     n, m = cfg.spatial_shards, cfg.spatial_shards_w
     if n * m == 1:
         return
+    check_bands(cfg.encoder)  # here, before the process group starts; create_model refuses only after it
     if cfg.input_height % n:
         raise SystemExit(f"input_height {cfg.input_height} not divisible by --spatial_shards {n}")
     if cfg.input_width % m:
@@ -230,7 +233,7 @@ def train(cfg, device):
         log(f"[bts_tpu_torch] encoder initialized from {cfg.pretrained_model}")
     trainer = Trainer(model, cfg, total_steps, device, augment=True)
     if primary:
-        write_config_sidecar(cfg, logdir)
+        write_config_sidecar(cfg, logdir, resolved_pad(cfg))
 
     # --retrain restores FROM checkpoint_path and saves into a fresh
     # directory, with the step reset to 0

@@ -44,6 +44,7 @@ import torch
 from bts_tpu_torch.config import adopt_sidecar_geometry, parse_args, require_device
 from bts_tpu_torch.data.augment import eval_preprocess
 from bts_tpu_torch.models.bts import set_float32_precision
+from bts_tpu_torch.models.encoders import check_bands
 from bts_tpu_torch.parallel import distributed as parallel
 from bts_tpu_torch.parallel import spatial
 from bts_tpu_torch.utils.profiling import span
@@ -120,6 +121,8 @@ def main(argv=None):
     cfg = adopt_sidecar_geometry(cfg)  # trained-run stride-2 geometry, if recorded
     device = require_device(cfg)
     banded = cfg.spatial_shards * cfg.spatial_shards_w > 1
+    if banded:
+        check_bands(cfg.encoder)  # here, before the process group starts; create_model refuses only after it
     started = parallel.maybe_init_distributed(cfg) if banded else False
     try:
         return _test(cfg, parallel.local_device(device) if banded else device, banded)

@@ -91,7 +91,7 @@ class Config:
     use_pallas: str = "auto"  # auto | always | never: the hand-written kernels or their plain versions
     fused_tail: str = "auto"  # auto | always | never; auto = the literal decoder tail
     upconv_bwd: str = "auto"  # parsed for arg-file compatibility: the port's one UpConv backward is autograd's, the counterpart of "dilated" (the literal custom VJP exists in the JAX package only for GSPMD's spatial sharding)
-    encoder_pad: str = "auto"  # auto | same | torch; stride-2 window alignment in the encoder — torchvision weights (--pretrained_model) need "torch" or they land one pixel off at every downsampling stage; "auto" = torch when --pretrained_model is set (recorded in the run's config sidecar so test/eval restore matches), else TF-SAME
+    encoder_pad: str = "auto"  # auto | same | torch; stride-2 window alignment in the encoder — torchvision weights (--pretrained_model) need "torch" or they land one pixel off at every downsampling stage; "auto" = torch when --pretrained_model is set (TF-SAME for efficientnet_b5_bts, whose weights are TF-ported; recorded in the run's config sidecar so test/eval restore matches), else TF-SAME
     use_native_loader: str = "auto"  # auto | always | never (C++ decode path)
     shard_opt_state: bool = False  # ZeRO-1 optimizer-state sharding
     spatial_shards: int = 1  # split each frame's height into this many bands, one process each (parallel/spatial.py)
@@ -114,23 +114,15 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-def resolved_encoder_pad(cfg: Config) -> str:
-    """Resolve ``encoder_pad='auto'``: torchvision --pretrained_model weights
-    need torch stride-2 window alignment (see models/layers.py::pad2);
-    scratch training keeps the TF-SAME geometry the parity tests pin."""
-    if cfg.encoder_pad != "auto":
-        return cfg.encoder_pad
-    return "torch" if cfg.pretrained_model else "same"
-
-
-def write_config_sidecar(cfg: Config, logdir: str) -> str:
+def write_config_sidecar(cfg: Config, logdir: str, encoder_pad: str) -> str:
     """Record the run's full flag surface next to the checkpoints, plus the
-    resolved stride-2 geometry, so restore-side drivers reproduce it
-    without the train-only flags."""
+    resolved stride-2 geometry ``encoder_pad``
+    (``models/encoders::resolved_pad``), so restore-side drivers reproduce
+    it without the train-only flags."""
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, "config.json")
     rec = dataclasses.asdict(cfg)
-    rec["encoder_pad_resolved"] = resolved_encoder_pad(cfg)
+    rec["encoder_pad_resolved"] = encoder_pad
     with open(path, "w") as f:
         json.dump(rec, f, indent=1, sort_keys=True)
     return path

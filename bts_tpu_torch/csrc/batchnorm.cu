@@ -1,25 +1,29 @@
-// Eval-mode BatchNorm, with the ReLU after it where asked, in one pass over
-// an NCHW-contiguous tensor (K7), for Hopper (sm_90a).
+// Eval-mode BatchNorm, with the activation after it where asked (ReLU or
+// SiLU), in one pass over an NCHW-contiguous tensor (K7), for Hopper (sm_90a).
 //
 // It replaces no TPU kernel: the JAX package leaves BatchNorm to XLA, which
 // fuses it into its neighbours.  The port ran the literal ATen chain of
 // models/layers.py::BatchNorm, eight launches (x.float(), var + eps, rsqrt,
 // * weight, x - mean, * mul, + bias, .to(dtype)) and a ninth for the F.relu
-// after it: a bf16 tensor was read and written as f32 three times over, about
-// 40 bytes an element, and the serving forward issued ~1,500 launches a
-// 352x1216 frame for its BatchNorms.
+// after it (F.silu after EfficientNet's): a bf16 tensor was read and written
+// as f32 three times over, about 40 bytes an element, and the DenseNet-161
+// serving forward issued ~1,500 launches a 352x1216 frame for its BatchNorms.
 //
 // Function, in f32, each step rounded once as the chain rounds it:
 //
 //   mul[c] = rsqrt(var[c] + eps) * weight[c]
-//   y      = dtype(((float(x) - mean[c]) * mul[c]) + bias[c]),  then max(y, 0) if relu
+//   z      = ((float(x) - mean[c]) * mul[c]) + bias[c]
+//   y      = dtype(z), dtype(max(z, 0)) (relu) or dtype(z / (1 + exp(-z))) (silu)
 //
 // with c the channel of the element.  The __f*_rn intrinsics keep nvcc from
 // contracting a multiply and an add into an FMA, which would round once where
 // ATen's separate kernels round twice; rsqrtf is the function ATen's rsqrt
 // calls; the cast to bf16 rounds to nearest even, as ATen's.  ReLU commutes
 // with the rounding (both are monotone and keep 0), so it is applied in f32.
-// The output equals the chain's bit for bit (tests/test_torch_port_cuda.py).
+// SiLU is ATen's own f32 formula, z / (1 + expf(-z)) with an IEEE division,
+// taken of the f32 z before the one rounding, as ops/bn_cuda.py::normalize
+// orders it.  The output equals the plain version's bit for bit
+// (tests/test_torch_port_cuda.py).
 //
 // What bounds it: bytes.  Each element is read once and written once in x's
 // dtype, 4 bytes an element in bf16 and 8 in f32, about 4 flops an element
@@ -50,6 +54,8 @@
 //   ~82 M), and BatchNorm keeps the ATen chain for it.
 // - Chunks of 1,024 vectors, fewer where that leaves under 4 blocks an SM,
 //   so that a small tensor still spreads over the card.
+// - The activation is a template parameter: none, ReLU and SiLU compile to
+//   separate kernels with no branch in the element loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,24 +101,27 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) { return __float2bfloat16_rn(v); }
 
-// (x - mean) * mul + bias, each step rounded, ReLU if asked, in x's dtype;
-// p = (mean, mul, bias, -).  y < 0 is false for NaN, which passes, as in
-// F.relu.
-template <typename T>
-__device__ __forceinline__ T bn(T x, float4 p, bool relu) {
+enum Act { kNone = 0, kRelu = 1, kSilu = 2 };
+
+// (x - mean) * mul + bias, each step rounded, then the activation, in x's
+// dtype; p = (mean, mul, bias, -).  y < 0 is false for NaN, which passes, as
+// in F.relu.
+template <typename T, int kAct>
+__device__ __forceinline__ T bn(T x, float4 p) {
   float y = __fadd_rn(__fmul_rn(__fsub_rn(to_float(x), p.x), p.y), p.z);
-  if (relu && y < 0.f) y = 0.f;
+  if (kAct == kRelu && y < 0.f) y = 0.f;
+  if (kAct == kSilu) y = __fdiv_rn(y, __fadd_rn(1.f, expf(-y)));
   return from_float<T>(y);
 }
 
 // n < 2**31 elements of whole planes, plane p of channel p % C; block b
 // takes its vectors [b * chunk, (b + 1) * chunk).
-template <typename T, int V, bool kWhole>
+template <typename T, int V, bool kWhole, int kAct>
 __global__ void __launch_bounds__(kThreads)
 bn_act_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ mean,
               const float* __restrict__ var, const float* __restrict__ weight,
               const float* __restrict__ bias, float eps, uint32_t n, uint32_t C, Div hw,
-              uint32_t chunk, bool relu) {
+              uint32_t chunk) {
   __shared__ float4 table[kMaxPlanes];
   const uint32_t nvec = (n + V - 1) / V;
   const uint32_t v0 = blockIdx.x * chunk;
@@ -154,7 +163,7 @@ bn_act_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restric
     if (kWhole) {
       const float4 p = table[quotient(local, hw)];
 #pragma unroll
-      for (int i = 0; i < V; ++i) out.e[i] = bn(in[k].e[i], p, relu);
+      for (int i = 0; i < V; ++i) out.e[i] = bn<T, kAct>(in[k].e[i], p);
       *reinterpret_cast<Vec<T, V>*>(y + e) = out;
     } else {
       // walk the vector's elements across plane boundaries (any number of
@@ -165,7 +174,7 @@ bn_act_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restric
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         if (pos == hw.d) pos = 0, ++plane;
-        out.e[i] = bn(in[k].e[i], table[min(plane, planes - 1)], relu);
+        out.e[i] = bn<T, kAct>(in[k].e[i], table[min(plane, planes - 1)]);
         ++pos;
       }
       if (e + V <= n) {
@@ -200,45 +209,57 @@ int64_t chunk_for(int64_t nvec, int64_t HW, int V) {
   return chunk < by_planes ? chunk : by_planes;
 }
 
-template <typename T, int V, bool kWhole>
+template <typename T, int V, bool kWhole, int kAct>
 void launch(const void* x, void* y, const float* mean, const float* var, const float* weight,
-            const float* bias, float eps, int64_t numel, int64_t C, int64_t HW, bool relu,
-            cudaStream_t s) {
+            const float* bias, float eps, int64_t numel, int64_t C, int64_t HW, cudaStream_t s) {
   const int64_t nvec = (numel + V - 1) / V;
   const int64_t chunk = chunk_for(nvec, HW, V);
   const int64_t blocks = (nvec + chunk - 1) / chunk;
-  bn_act_kernel<T, V, kWhole><<<(unsigned)blocks, kThreads, 0, s>>>(
+  bn_act_kernel<T, V, kWhole, kAct><<<(unsigned)blocks, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<T*>(y), mean, var, weight, bias, eps, (uint32_t)numel,
-      (uint32_t)C, make_div((uint32_t)HW), (uint32_t)chunk, relu);
+      (uint32_t)C, make_div((uint32_t)HW), (uint32_t)chunk);
+}
+
+template <typename T, int kAct>
+void dispatch(const void* x, void* y, const float* mean, const float* var, const float* weight,
+              const float* bias, float eps, int64_t numel, int64_t C, int64_t HW, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  if ((uintptr_t)x % 16 != 0 || (uintptr_t)y % 16 != 0) {
+    launch<T, 1, true, kAct>(x, y, mean, var, weight, bias, eps, numel, C, HW, s);
+  } else if (HW % V == 0) {
+    launch<T, V, true, kAct>(x, y, mean, var, weight, bias, eps, numel, C, HW, s);
+  } else {
+    launch<T, V, false, kAct>(x, y, mean, var, weight, bias, eps, numel, C, HW, s);
+  }
 }
 
 template <typename T>
-void dispatch(const void* x, void* y, const float* mean, const float* var, const float* weight,
-              const float* bias, float eps, int64_t numel, int64_t C, int64_t HW, bool relu,
-              cudaStream_t s) {
-  constexpr int V = 16 / sizeof(T);
-  if ((uintptr_t)x % 16 != 0 || (uintptr_t)y % 16 != 0) {
-    launch<T, 1, true>(x, y, mean, var, weight, bias, eps, numel, C, HW, relu, s);
-  } else if (HW % V == 0) {
-    launch<T, V, true>(x, y, mean, var, weight, bias, eps, numel, C, HW, relu, s);
+void dispatch_act(const void* x, void* y, const float* mean, const float* var, const float* weight,
+                  const float* bias, float eps, int64_t numel, int64_t C, int64_t HW, int act,
+                  cudaStream_t s) {
+  if (act == kRelu) {
+    dispatch<T, kRelu>(x, y, mean, var, weight, bias, eps, numel, C, HW, s);
+  } else if (act == kSilu) {
+    dispatch<T, kSilu>(x, y, mean, var, weight, bias, eps, numel, C, HW, s);
   } else {
-    launch<T, V, false>(x, y, mean, var, weight, bias, eps, numel, C, HW, relu, s);
+    dispatch<T, kNone>(x, y, mean, var, weight, bias, eps, numel, C, HW, s);
   }
 }
 
 }  // namespace
 
-// y = BatchNorm(x) (+ ReLU where relu != 0) for an NCHW-contiguous x of
-// numel = N * C * HW elements in `dtype` (0 = f32, 1 = bf16) into y (same
-// dtype, contiguous), with f32 per-channel mean, var, weight and bias, on
+// y = BatchNorm(x), then the activation `act` (0 none, 1 ReLU, 2 SiLU), for
+// an NCHW-contiguous x of numel = N * C * HW elements in `dtype` (0 = f32,
+// 1 = bf16) into y (same dtype, contiguous), with f32 per-channel mean, var,
+// weight and bias, on
 // `device`'s `stream`.  numel < 2**31 and HW <= 2**27, so that every index
 // and plane offset fits the divider's 31 bits.  Returns cudaGetLastError()
 // after the launch (0 on success).
 extern "C" int bn_act_forward(const void* x, void* y, int dtype, const float* mean,
                               const float* var, const float* weight, const float* bias, float eps,
-                              int64_t numel, int C, int HW, int relu, int device, void* stream) {
+                              int64_t numel, int C, int HW, int act, int device, void* stream) {
   if (numel <= 0 || numel >= kMaxNumel || C <= 0 || HW <= 0 || HW > (1 << 27) ||
-      numel % ((int64_t)C * HW) != 0 || (dtype != 0 && dtype != 1)) {
+      numel % ((int64_t)C * HW) != 0 || (dtype != 0 && dtype != 1) || act < kNone || act > kSilu) {
     return (int)cudaErrorInvalidValue;
   }
   int current = 0;
@@ -247,9 +268,9 @@ extern "C" int bn_act_forward(const void* x, void* y, int dtype, const float* me
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {
-    dispatch<float>(x, y, mean, var, weight, bias, eps, numel, C, HW, relu != 0, s);
+    dispatch_act<float>(x, y, mean, var, weight, bias, eps, numel, C, HW, act, s);
   } else {
-    dispatch<__nv_bfloat16>(x, y, mean, var, weight, bias, eps, numel, C, HW, relu != 0, s);
+    dispatch_act<__nv_bfloat16>(x, y, mean, var, weight, bias, eps, numel, C, HW, act, s);
   }
   err = cudaGetLastError();
   if (current != device) cudaSetDevice(current);

@@ -46,8 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bts_tpu_torch.config import resolved_encoder_pad
-from bts_tpu_torch.models.encoders import build_encoder
+from bts_tpu_torch.models.encoders import build_encoder, check_bands, resolved_pad
 from bts_tpu_torch.models.layers import (
     AtrousConv,
     BatchNorm,
@@ -272,14 +271,16 @@ def create_model(cfg, device="cpu") -> BtsModel:
     ``--spatial_shards N --spatial_shards_w M``: the model runs on bands
     over N*M processes of the initialised process group (``parallel/
     spatial.py``), which must hold a multiple of N*M, and keeps the literal
-    decoder tail (``fused_tail`` "never")."""
+    decoder tail (``fused_tail`` "never"); an encoder that cannot run on
+    bands (EfficientNet's global squeeze-excite) refuses it."""
     shards = cfg.spatial_shards * cfg.spatial_shards_w
     fused_tail = cfg.fused_tail
     if shards > 1:
+        check_bands(cfg.encoder)
         spatial.check_world(cfg.spatial_shards, cfg.spatial_shards_w, parallel.world())
         fused_tail = "never"
     dtype = DTYPES[cfg.compute_dtype]
-    encoder = build_encoder(cfg.encoder, dtype=dtype, pad_style=resolved_encoder_pad(cfg),
+    encoder = build_encoder(cfg.encoder, dtype=dtype, pad_style=resolved_pad(cfg),
                             remat=cfg.remat, remat_policy=cfg.remat_policy)
     decoder = BtsDecoder(
         encoder.channels,

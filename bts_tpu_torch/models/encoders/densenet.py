@@ -60,8 +60,8 @@ class DenseLayer(nn.Module):
         self.conv2 = Conv2d(4 * growth_rate, growth_rate, 3, bias=False, dtype=dtype)
 
     def forward(self, x):
-        y = self.conv1(self.norm1(x, relu=True))
-        y = self.conv2(self.norm2(y, relu=True))
+        y = self.conv1(self.norm1(x, act="relu"))
+        y = self.conv2(self.norm2(y, act="relu"))
         return torch.cat([x, y], dim=1)
 
 
@@ -72,7 +72,7 @@ class Transition(nn.Module):
         self.conv = Conv2d(in_channels, out_channels, 1, bias=False, dtype=dtype)
 
     def forward(self, x):
-        return avg_pool2(self.conv(self.norm(x, relu=True)))
+        return avg_pool2(self.conv(self.norm(x, act="relu")))
 
 
 class DenseNet(nn.Module):
@@ -129,7 +129,7 @@ class DenseNet(nn.Module):
         f = self.features
         feats = []
         x = stride2(f["conv0"], x, 7, self.pad_style)
-        x = f["norm0"](x, relu=True)
+        x = f["norm0"](x, act="relu")
         feats.append(x)  # relu0: H/2
         x = stride2(_max_pool, x, 3, self.pad_style, value=float("-inf"))
         feats.append(x)  # pool0: H/4

@@ -55,9 +55,9 @@ class Bottleneck(nn.Module):
             )
 
     def forward(self, x):
-        y = self.bn1(self.conv1(x), relu=True)
+        y = self.bn1(self.conv1(x), act="relu")
         y = stride2(self.conv2, y, 3, self.pad_style) if self.stride == 2 else self.conv2(y)
-        y = self.bn2(y, relu=True)
+        y = self.bn2(y, act="relu")
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(y + residual)
@@ -94,7 +94,7 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         feats = []
-        x = self.bn1(stride2(self.conv1, x, 7, self.pad_style), relu=True)
+        x = self.bn1(stride2(self.conv1, x, 7, self.pad_style), act="relu")
         feats.append(x)  # stride 2, 64 channels
         x = stride2(_max_pool, x, 3, self.pad_style, value=float("-inf"))
         remat = self.remat and torch.is_grad_enabled()

@@ -3,8 +3,12 @@
 
 Conventions, as in the JAX package:
 - weights are kept in f32 and cast per conv to the compute ``dtype``, which
-  is also the dtype of every activation between modules;
-- BatchNorm uses eps 1.1e-5, runs in f32 and casts back; in train mode it
+  is also the dtype of every activation between modules (one exception:
+  EfficientNet's squeeze-excite, ``encoders/efficientnet.py::SqueezeExcite``,
+  runs its two 1x1 convs as f32 ``F.linear`` on the pooled vector and
+  rounds only the gate);
+- BatchNorm uses eps 1.1e-5 (EfficientNet's 1e-3, the TF lineage's, where
+  its encoder passes it), runs in f32 and casts back; in train mode it
   normalises by the batch statistics and folds them into the running ones
   as flax does (momentum 0.99 on the old value, biased batch variance);
 - ELU inside the decoder, ReLU inside the dense-ASPP cells.
@@ -190,9 +194,9 @@ class ConvBlock(Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm in f32 with the reference lineage's eps; the result is cast
-    back to the input dtype.  Parameter and buffer names are torch's
-    (weight, bias, running_mean, running_var).
+    """BatchNorm in f32 with the reference lineage's eps (``eps``, default
+    ``BN_EPS``); the result is cast back to the input dtype.  Parameter and
+    buffer names are torch's (weight, bias, running_mean, running_var).
 
     Train mode (``module.train()``) is flax's ``BatchNorm(train=True)``: the
     batch mean and the biased batch variance E[x^2] - E[x]^2 (clipped at 0)
@@ -212,11 +216,12 @@ class BatchNorm(nn.Module):
 
     Eval mode under no grad, on an NCHW-contiguous f32 or bf16 CUDA tensor
     of under 2**31 elements, runs the same arithmetic as one kernel
-    (``ops/bn_cuda.py``, K7), the ReLU included where asked; every other
-    case runs it as PyTorch ops (``bn_cuda.normalize``)."""
+    (``ops/bn_cuda.py``, K7), the activation included where asked; every
+    other case runs it as PyTorch ops (``bn_cuda.normalize``)."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, eps: float = BN_EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -234,12 +239,13 @@ class BatchNorm(nn.Module):
         sums = dist_fn.all_reduce(sums, group=self.process_group)
         return sums[:c] / sums[-1], sums[c:-1] / sums[-1]
 
-    def forward(self, x, relu: bool = False):
-        """The BatchNorm of x, then ReLU where ``relu`` (the ReLU that follows
-        the module at DenseNet's and ResNet's sites, fused into K7)."""
+    def forward(self, x, act: str = "none"):
+        """The BatchNorm of x, then the activation ``act``: "none", "relu"
+        (the ReLU that follows the module at DenseNet's and ResNet's sites)
+        or "silu" (EfficientNet's), fused into K7."""
         if (not (self.training or torch.is_grad_enabled()) and x.is_cuda and x.dtype in bn_cuda.DTYPES
                 and x.is_contiguous() and bn_cuda.fits(x)):
-            return bn_cuda.bn_act(x, self.running_mean, self.running_var, self.weight, self.bias, BN_EPS, relu)
+            return bn_cuda.bn_act(x, self.running_mean, self.running_var, self.weight, self.bias, self.eps, act)
         xf = x.float()
         if self.training:
             mean, mean_sq = self._moments(xf)
@@ -251,7 +257,7 @@ class BatchNorm(nn.Module):
                     self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
-        return bn_cuda.normalize(xf, mean, var, self.weight, self.bias, BN_EPS, x.dtype, relu)
+        return bn_cuda.normalize(xf, mean, var, self.weight, self.bias, self.eps, x.dtype, act)
 
 
 def _phase_conv_transpose_2x(x, weight, bias):
@@ -359,8 +365,8 @@ class AtrousConv(nn.Module):
         self.conv2 = Conv2d(features * 2, features, 3, dilation=dilation, dtype=dtype)
 
     def forward(self, x):
-        x = F.relu(x) if self.first_bn is None else self.first_bn(x, relu=True)
-        return self.conv2(self.bn(self.conv1(x), relu=True))
+        x = F.relu(x) if self.first_bn is None else self.first_bn(x, act="relu")
+        return self.conv2(self.bn(self.conv1(x), act="relu"))
 
 
 class Reduction1x1(nn.Module):

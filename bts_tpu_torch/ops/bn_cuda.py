@@ -1,15 +1,18 @@
-"""Eval-mode BatchNorm, with the ReLU after it where asked, in one pass on
-Hopper (K7, ``csrc/batchnorm.cu``): its plain PyTorch version, its launch,
-its registered op and the call ``models/layers.py::BatchNorm`` makes.
+"""Eval-mode BatchNorm, with the activation after it where asked (ReLU or
+SiLU), in one pass on Hopper (K7, ``csrc/batchnorm.cu``): its plain PyTorch
+version, its launch, its registered op and the call
+``models/layers.py::BatchNorm`` makes.
 
 K7 replaces no TPU kernel (the JAX package leaves BatchNorm to XLA, which
 fuses it); it replaces the eight ATen launches of the f32 chain, and the
-F.relu after it, with one bf16 (or f32) pass: its bound is bytes, see the
-source's header.
+F.relu or F.silu after it, with one bf16 (or f32) pass: its bound is bytes,
+see the source's header.
 
 - :func:`normalize` is the arithmetic of ``BatchNorm`` in every mode:
   ``mul = rsqrt(var + eps) * weight``, ``y = (x - mean) * mul + bias`` in
-  f32, rounded once to the compute dtype, then ReLU if asked.
+  f32, then the activation ``act``: "none", "relu" (on the rounded y; it
+  commutes with the rounding) or "silu" (``y * sigmoid(y)`` on the f32 y),
+  rounded once to the compute dtype.
   :func:`bn_act_plain` applies it to x; it is K7's oracle and its CPU path.
 - :data:`bn_act` is the ``torch.library`` op ``bts_tpu_torch::bn_act``, so
   ``torch.export`` captures it and a profiler finds K7 under it: a CUDA
@@ -27,10 +30,12 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from bts_tpu_torch.ops import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes (the compute dtypes)
+ACTS = {"none": 0, "relu": 1, "silu": 2}  # the kernel's activation codes
 MAX_NUMEL, MAX_PLANE = 2**31, 2**27  # the kernel indexes in 32 bits: numel < MAX_NUMEL, H * W <= MAX_PLANE
 
 
@@ -42,22 +47,30 @@ def fits(x: torch.Tensor) -> bool:
 
 
 def normalize(xf: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
-              bias: torch.Tensor, eps: float, dtype: torch.dtype, relu: bool) -> torch.Tensor:
+              bias: torch.Tensor, eps: float, dtype: torch.dtype, act: str) -> torch.Tensor:
     """BatchNorm of an f32 NCHW ``xf`` by per-channel statistics and affine
-    parameters, in f32, rounded once to ``dtype``, then ReLU if ``relu``.
-    The ReLU is in place: y is this function's own tensor, which no backward
-    saves, and the caller still holds x, so a second output would add an
-    activation to the peak that a ReLU after the module did not."""
+    parameters, in f32, then ``act`` (a key of :data:`ACTS`), rounded once
+    to ``dtype``.  SiLU is taken of the f32 value before the rounding.  The
+    ReLU is in place after it: y is this function's own tensor, which no
+    backward saves, and the caller still holds x, so a second output would
+    add an activation to the peak that a ReLU after the module did not."""
     shape = (1, -1, 1, 1)
     mul = torch.rsqrt(var + eps) * weight
-    y = ((xf - mean.view(shape)) * mul.view(shape) + bias.view(shape)).to(dtype)
-    return torch.relu_(y) if relu else y
+    y = (xf - mean.view(shape)) * mul.view(shape) + bias.view(shape)
+    if act == "silu":
+        return F.silu(y).to(dtype)
+    y = y.to(dtype)
+    if act == "relu":
+        return torch.relu_(y)
+    if act != "none":
+        raise ValueError(f"act must be one of {sorted(ACTS)}, got {act!r}")
+    return y
 
 
 def bn_act_plain(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor, eps: float, relu: bool) -> torch.Tensor:
+                 bias: torch.Tensor, eps: float, act: str) -> torch.Tensor:
     """Plain PyTorch K7: :func:`normalize` of x, in x's dtype."""
-    return normalize(x.float(), mean, var, weight, bias, eps, x.dtype, relu)
+    return normalize(x.float(), mean, var, weight, bias, eps, x.dtype, act)
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,7 +85,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _k7_cuda(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, weight: torch.Tensor,
-             bias: torch.Tensor, eps: float, relu: bool) -> torch.Tensor:
+             bias: torch.Tensor, eps: float, act: str) -> torch.Tensor:
     """K7 on a CUDA tensor, on the current stream; adds one to
     ``bn_act.launches``.  The CUDA implementation of :data:`bn_act`: x is
     an NCHW-contiguous f32 or bf16 tensor, the four parameters contiguous f32
@@ -96,11 +109,13 @@ def _k7_cuda(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, weight: tor
                          f"got (dtype, shape, device, contiguous) {got}")
     if not fits(x):
         raise ValueError(f"bn_act: {tuple(x.shape)} is beyond the kernel's 2**31 elements or 2**27-pixel planes")
+    if act not in ACTS:
+        raise ValueError(f"bn_act: act must be one of {sorted(ACTS)}, got {act!r}")
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
     err = _lib().bn_act_forward(x.data_ptr(), y.data_ptr(), DTYPES[x.dtype], mean.data_ptr(), var.data_ptr(),
-                                weight.data_ptr(), bias.data_ptr(), eps, y.numel(), c, h * w, relu, dev,
+                                weight.data_ptr(), bias.data_ptr(), eps, y.numel(), c, h * w, ACTS[act], dev,
                                 torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"bn_act kernel launch failed: {_lib().bn_act_error_string(err).decode()}")
@@ -108,7 +123,7 @@ def _k7_cuda(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, weight: tor
     return y
 
 
-# Eval-mode BatchNorm (+ ReLU): x (N, C, H, W) and f32 (C,) mean, var,
+# Eval-mode BatchNorm (+ ReLU or SiLU): x (N, C, H, W) and f32 (C,) mean, var,
 # weight, bias -> y in x's dtype and layout.  A CPU tensor takes
 # bn_act_plain; a CUDA tensor launches K7 on the current stream (_k7_cuda).
 bn_act = torch.library.custom_op("bts_tpu_torch::bn_act", _k7_cuda, mutates_args=(), device_types="cuda")
@@ -116,7 +131,7 @@ bn_act.register_kernel("cpu")(bn_act_plain)
 
 
 @bn_act.register_fake
-def _(x, mean, var, weight, bias, eps, relu):
+def _(x, mean, var, weight, bias, eps, act):
     return torch.empty_like(x)
 
 

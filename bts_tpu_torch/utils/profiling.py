@@ -16,7 +16,10 @@ every kernel count of the port's checks:
   links (by correlation id) to an op called in the window, so a record
   left over from an earlier window cannot be counted; a window that lists
   none of its kernels (still seen once with the forced flush) is run
-  again.  A kernel launched
+  again.  Some windows drop the records of their first launch, op and
+  kernel, every time (on an H100, sooner or later in a long process), so
+  each opens with a sleep kernel, which takes that place and is never
+  counted.  A kernel launched
   outside every op is not seen: each of the port's kernels launches inside
   its torch.library op, and a cast launches inside ``aten::to``.
 
@@ -35,6 +38,9 @@ place:
   (remat's recompute runs in the backward, inside ``bts.backward``);
 - ``bts.lpg``: the LPG heads inside the decoder (plane maths, K1, the
   strided guidance, or K5 and K6 on the fused tail);
+- ``bts.dwconv``, ``bts.se``: inside ``bts.encoder``, EfficientNet's
+  depthwise convs (with their padding and BN+SiLU) and its squeeze-excites
+  (``models/encoders/efficientnet.py``; the innermost spans there);
 - ``bts.loss``: the silog loss and the step's logged loss and depth;
 - ``bts.backward``: the backward (autograd's threads run it while the
   calling thread waits inside the span) and the gradient all-reduce;
@@ -122,12 +128,14 @@ def launched_kernels(fn: Callable[[], object], ops: Iterable[str] = ()) -> dict:
 
 def _one_window(fn: Callable[[], object], ops: tuple) -> dict:
     with window() as prof:
+        torch.cuda._sleep(1)  # the first launch, whose records a window may drop
         fn()
     records = prof.profiler.kineto_results.events()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     op_ids = {r.correlation_id() for r in records if r.device_type() == cpu and r.linked_correlation_id() == 0}
     op_ids.discard(0)
-    device = [(r.name(), r.linked_correlation_id()) for r in records if r.device_type() == cuda]
+    device = [(r.name(), r.linked_correlation_id()) for r in records
+              if r.device_type() == cuda and "spin_kernel" not in r.name()]
 
     def names(within: set) -> list:
         return [name for name, op in device if op in within]

@@ -74,19 +74,22 @@ Phases, one JSON line each, then the result:
                 SM cycles per block in each stage (staging, upconv,
                 reduction chain, iconv1, final conv) from the profiling
                 build.
-7b. bn       - K7, the eval-mode BatchNorm (+ReLU) of csrc/batchnorm.cu, on
-                the 175 BatchNorm calls of a DenseNet-161 BTS bf16 serving
-                forward at 352x1216 (their shapes and ReLUs from forward
-                pre-hooks; the forward must launch K7 once per call), at b1
-                and b8: equal to the ATen chain at every call, bit for bit;
-                the summed device ms of all of them (torch.profiler, each
-                window holding every launch the calls make, or dropped) for
-                K7 through its op, the plain chain and F.batch_norm +
-                F.relu (the yardstick the port never calls),
-                against their byte bound (4 bytes an element), K7 also by
-                plane size; the host's microseconds to issue one call on
-                norm5's input through the module, the op, the launch alone,
-                the chain and F.batch_norm.
+7b. bn       - K7, the eval-mode BatchNorm (+ReLU or SiLU) of
+                csrc/batchnorm.cu, on the BatchNorm calls of a bf16 serving
+                forward at 352x1216 (their shapes, activations and eps from
+                forward pre-hooks; the forward must launch K7 once per
+                call): DenseNet-161 BTS's 175 (ReLU, eps 1.1e-5) at b1 and
+                b8, EfficientNet-B5 BTS's 130 (76 SiLU, 9 ReLU; eps 1e-3 in
+                the encoder) at b1 and b16: equal to the ATen chain at every
+                call, bit for bit; the summed device ms of all of them
+                (torch.profiler, each window holding every launch the calls
+                make, or dropped) for K7 through its op, the plain chain and
+                F.batch_norm + F.relu or F.silu (the yardstick the port
+                never calls), against their byte bound (4 bytes an
+                element), K7 also by plane size; the host's microseconds to
+                issue one call on DenseNet-161's norm5 input through the
+                module, the op, the launch alone, the chain and
+                F.batch_norm.
 8. upconv     - the five UpConvs of DenseNet-161 BTS (bts_size 512) at the
                 b1 352x1216 serving shapes and the b16 352x704 config-4
                 shapes, f32 and bf16: the fused form (one stride-2
@@ -196,12 +199,20 @@ Phases, one JSON line each, then the result:
                 and K1 at the three heads of a NYU online eval (480x640, b4),
                 f32 and bf16 raw, by the rules and with the columns of
                 kernel_bwd; the per-step sums of config 3.
-15. encoders  - ResNet-50/101, ResNeXt-50/101 and MobileNetV2 serving at
-                352x1216 b1 (bts_size 512, seeded weights): one f32 forward
+15. encoders  - ResNet-50/101, ResNeXt-50/101, MobileNetV2 and
+                EfficientNet-B5 serving at 352x1216 b1 (bts_size 512,
+                seeded weights): one f32 forward
                 with 3 K1 launches against use_pallas="never" (maps by K1's
                 rule, final rtol 1e-5) and against the CPU at 64x96 (rtol
                 2e-4, atol 2e-4*max|ref|); median ms of 5 bf16 forwards and
                 the peak memory.
+15b. serve_b5 - EfficientNet-B5 BTS serving at the b16 stream's shape
+                (create_model + bts_test.predict, 352x1216, b16, bf16,
+                seeded weights): 130 K7 and 3 K1 launches per forward,
+                counted from 0 just before the run; finite outputs, depth
+                in (0, max_depth]; equal, bit for bit, to the same forward
+                with every BatchNorm on its plain version; median ms of 5
+                forwards after 2 warm-up, images/s and the peak memory.
 16. train_nyu - config 3 (ResNeXt-101, NYU 480x640 frames border-cropped to
                 427x565 and augmented to 416x544 with rotation <= 2.5
                 degrees, depth in [0.2, 9.5) m, b4, bf16, no remat, AdamW lr
@@ -280,8 +291,8 @@ Phases, one JSON line each, then the result:
                 with FloatingPointError naming it.
 20. result    - {"kernels": [...]}: all seven kernels, launches by main path
                 (serve, serve_tail, train, train_ddp, spatial, op,
-                encoders, train_nyu, eval, export, serve_http, sequence,
-                input; each path's
+                encoders, serve_b5, train_nyu, eval, export, serve_http,
+                sequence, input; each path's
                 counts set to 0 just before it runs, K7's checked against
                 the BatchNorm calls that take it), and ms,
                 plain_ms, bound_ms per the unit
@@ -289,7 +300,9 @@ Phases, one JSON line each, then the result:
                 raw; K3: the three serving heads; K4: the three config-4
                 heads, bf16 plane; K5: a fused-tail forward's three heads;
                 K6: one 352x1216 forward; K7: the 175 BatchNorms of one
-                352x1216 b1 forward, with library_ms), with kernel_only_ms,
+                352x1216 b1 forward, with library_ms, and under
+                efficientnet_b5_b16 the same numbers and launches for the
+                130 of one EfficientNet-B5 b16 forward), with kernel_only_ms,
                 share_of_bound and (K3, K5) floor_ms where measured, the
                 nvidia-smi line, and the
                 contract line {"ok": true, ...} last.
@@ -344,8 +357,10 @@ NYU_TRAIN_H, NYU_TRAIN_W, NYU_B = 416, 544, 4
 NYU_FOCAL, NYU_MAX_DEPTH = 518.8579, 10.0
 NYU_TRAIN_SHAPES = [(4, 52, 68, 8), (4, 104, 136, 4), (4, 208, 272, 2)]  # config 3: b4 at 416x544
 NYU_EVAL_SHAPES = [(4, 60, 80, 8), (4, 120, 160, 4), (4, 240, 320, 2)]  # NYU online eval: b4 at 480x640
-NEW_ENCODERS = ("resnet50_bts", "resnet101_bts", "resnext50_bts", "resnext101_bts", "mobilenetv2_bts")
+NEW_ENCODERS = ("resnet50_bts", "resnet101_bts", "resnext50_bts", "resnext101_bts", "mobilenetv2_bts",
+                "efficientnet_b5_bts")
 ENCODER_FORWARDS = 5  # timed bf16 forwards per encoder, after 2 warm-up
+B5_SERVE_BATCH, B5_SERVE_FORWARDS = 16, 5  # serve_b5: the stream's batch; timed forwards, after 2 warm-up
 EVAL_FRAMES, KITTI_EVAL_FRAMES, KITTI_FULL = 10, 20, (375, 1242)
 SERVE_B, SERVE_REQUESTS, SERVE_LINGER_MS, SEQ_FRAMES = 4, 16, 20.0, 10  # the serving phase
 TIMED_FORWARDS = 20
@@ -1018,6 +1033,9 @@ def set_upconv(model, form: str) -> None:
 
 
 DENSENET161_BTS_BNS = 175  # BatchNorms of a DenseNet-161 BTS forward: 161 encoder, 9 dense ASPP, 5 decoder
+# and of an EfficientNet-B5 BTS forward: 116 encoder (76 before a SiLU), 9 dense ASPP, 5 decoder
+BTS_BNS = {"densenet161_bts": DENSENET161_BTS_BNS, "efficientnet_b5_bts": 130}
+BN_BATCHES = {"densenet161_bts": (1, 8), "efficientnet_b5_bts": (1, 16)}  # phase_bn's batches: the serving cells'
 K7_PATHS: dict = {}  # K7's launches on each main path of the result (k7_counted)
 
 
@@ -1044,11 +1062,11 @@ def k7_counted(path: str | None = None, expect: int | None = None):
     run, forward = K7Run(), BatchNorm.forward
     run.expect = expect
 
-    def counted(module, x, relu=False):
+    def counted(module, x, act="none"):
         if (not (module.training or torch.is_grad_enabled()) and x.is_cuda and x.dtype in bn_cuda.DTYPES
                 and x.is_contiguous() and bn_cuda.fits(x)):
             run.calls += 1
-        return forward(module, x, relu)
+        return forward(module, x, act)
 
     if expect is None:
         BatchNorm.forward = counted
@@ -1064,22 +1082,23 @@ def k7_counted(path: str | None = None, expect: int | None = None):
         K7_PATHS[path] = K7_PATHS.get(path, 0) + run.launches
 
 
-def bn_calls() -> list:
-    """(per-image shape, relu) of each BatchNorm call of a DenseNet-161 BTS
-    bf16 serving forward at 352x1216, in order (forward pre-hooks), after
-    checking that the forward launched K7 once per BatchNorm."""
+def bn_calls(encoder: str) -> list:
+    """(per-image shape, activation, eps) of each BatchNorm call of a BTS
+    bf16 serving forward of ``encoder`` at 352x1216, in order (forward
+    pre-hooks), after checking that the forward launched K7 once per
+    BatchNorm and that the model holds BTS_BNS[encoder] of them."""
     from bts_tpu_torch.config import Config
     from bts_tpu_torch.models.bts import create_model
     from bts_tpu_torch.models.layers import BatchNorm
     from bts_tpu_torch.ops import bn_cuda
 
-    cfg = Config(mode="test", encoder="densenet161_bts", bts_size=512, max_depth=MAX_DEPTH, dataset="kitti",
+    cfg = Config(mode="test", encoder=encoder, bts_size=512, max_depth=MAX_DEPTH, dataset="kitti",
                  input_height=H, input_width=W, compute_dtype="bfloat16", seed=0)
     model = create_model(cfg, "cuda")
     calls = []
 
     def hook(module, args, kwargs):
-        calls.append((tuple(args[0].shape[1:]), bool(kwargs.get("relu", False))))
+        calls.append((tuple(args[0].shape[1:]), kwargs.get("act", "none"), module.eps))
 
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
                for m in model.modules() if isinstance(m, BatchNorm)]
@@ -1090,8 +1109,8 @@ def bn_calls() -> list:
     launched = bn_cuda.bn_act.launches - before
     for handle in handles:
         handle.remove()
-    check(launched == len(calls) == len(handles) == DENSENET161_BTS_BNS,
-          f"K7: {launched} launches for {len(calls)} BatchNorm calls of {len(handles)} modules")
+    check(launched == len(calls) == len(handles) == BTS_BNS[encoder],
+          f"K7, {encoder}: {launched} launches for {len(calls)} BatchNorm calls of {len(handles)} modules")
     return calls
 
 
@@ -1145,78 +1164,88 @@ def kernels_ms(fn, expect: int, windows: int = 3) -> dict:
 
 
 def phase_bn(card: str) -> dict:
-    """K7 on the BatchNorm calls of a 352x1216 serving forward at b1 and
-    b8: equal to the chain at each call; the summed device ms and launches
-    of all of them (K7, the plain chain, F.batch_norm + F.relu as a
-    yardstick) against their byte bound, K7 also by plane size; the host's
-    cost of one call of each route."""
+    """K7 on the BatchNorm calls of a 352x1216 serving forward of each
+    encoder of BN_BATCHES at its batches (DenseNet-161 b1 and b8, ReLU;
+    EfficientNet-B5 b1 and b16, SiLU and eps 1e-3): equal to the chain at
+    each call; the summed device ms and launches of all of them (K7, the
+    plain chain, F.batch_norm + its F.relu or F.silu as a yardstick)
+    against their byte bound, K7 also by plane size; the host's cost of one
+    call of each route.  Returns {encoder: {"b<n>": record}} and
+    "host_per_call"."""
     import torch.nn.functional as F
 
-    from bts_tpu_torch.models.layers import BN_EPS, BatchNorm
+    from bts_tpu_torch.models.layers import BatchNorm
     from bts_tpu_torch.ops import bn_cuda
 
-    calls = bn_calls()
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def params(c):
         return (torch.randn(c, generator=g, device="cuda") * 0.5, torch.rand(c, generator=g, device="cuda") + 0.1,
                 1 + 0.2 * torch.randn(c, generator=g, device="cuda"), 0.2 * torch.randn(c, generator=g, device="cuda"))
 
-    ps = [params(shape[0]) for shape, _ in calls]
-    relus = [relu for _, relu in calls]
+    library_act = {"none": lambda y: y, "relu": F.relu, "silu": F.silu}
     routes = {
-        "kernel": lambda x, p, r: bn_cuda.bn_act(x, *p, BN_EPS, r),  # the op, as BatchNorm calls it
-        "launch": lambda x, p, r: bn_cuda._k7_cuda(x, *p, BN_EPS, r),  # its CUDA implementation alone
-        "plain": lambda x, p, r: bn_cuda.bn_act_plain(x, *p, BN_EPS, r),
-        "library": lambda x, p, r: (F.relu if r else (lambda y: y))(
-            F.batch_norm(x, p[0], p[1], p[2], p[3], False, 0.0, BN_EPS)),
+        "kernel": lambda x, p, a, e: bn_cuda.bn_act(x, *p, e, a),  # the op, as BatchNorm calls it
+        "launch": lambda x, p, a, e: bn_cuda._k7_cuda(x, *p, e, a),  # its CUDA implementation alone
+        "plain": lambda x, p, a, e: bn_cuda.bn_act_plain(x, *p, e, a),
+        "library": lambda x, p, a, e: library_act[a](F.batch_norm(x, p[0], p[1], p[2], p[3], False, 0.0, e)),
     }
-    out = {"calls": len(calls), "relu": sum(relus)}
-    # the launches of one pass over all the calls: K7 one a call; the chain
-    # eight and its F.relu; F.batch_norm two (cuDNN) and its F.relu
-    expect = {"kernel": len(calls), "plain": 8 * len(calls) + sum(relus), "library": 2 * len(calls) + sum(relus)}
-    for b in (1, 8):
-        xs = [(torch.randn((b,) + shape, generator=g, device="cuda") * 2 + 0.5).to(torch.bfloat16)
-              for shape, _ in calls]
-        with torch.inference_mode():
-            differ = sum(int((bn_cuda._k7_cuda(x, *p, BN_EPS, r) != bn_cuda.bn_act_plain(x, *p, BN_EPS, r)).sum())
-                         for x, p, r in zip(xs, ps, relus))
-            check(differ == 0, f"K7 at b{b}: {differ} elements differ from the chain")
-            elements = sum(x.numel() for x in xs)
-            rec = {"phase": "bn", "card": card, "batch": b, "per": "all BatchNorm calls of one forward",
-                   "elements_per_image": elements // b, "elements_differing": differ,
-                   **bound(4 * elements, 4 * elements)}
-            for name in ("kernel", "plain", "library"):
-                got = kernels_ms(lambda route=routes[name]: [route(x, p, r) for x, p, r in zip(xs, ps, relus)],
-                                 expect[name])
-                rec[f"{name}_ms"], rec[f"{name}_launches"] = got["ms"], got["launches"]
-                rec[f"{name}_windows_dropped"] = got["windows_dropped"]
-            rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
-            by_plane = {}
-            for x, p, r in zip(xs, ps, relus):
-                by_plane.setdefault(x.shape[2] * x.shape[3], []).append((x, p, r))
-            rec["by_plane"] = {}
-            for hw, group in sorted(by_plane.items(), reverse=True):
-                n = sum(x.numel() for x, _, _ in group)
-                got = kernels_ms(lambda group=group: [bn_cuda.bn_act(x, *p, BN_EPS, r) for x, p, r in group],
-                                 len(group))
-                row = {"calls": len(group), "elements": n, **bound(4 * n, 4 * n), "kernel_ms": got["ms"],
-                       "windows_dropped": got["windows_dropped"]}
-                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
-                rec["by_plane"][hw] = row
-        emit(rec)
-        out[f"b{b}"] = rec
-        del xs
-        torch.cuda.empty_cache()
-    # the host's cost of one call, on norm5's input (b1, 2208 x 11 x 38):
-    # the module, the op, the launch alone (the op less its dispatch), the
-    # chain with its ReLU and F.batch_norm with F.relu
-    (shape, _), p = calls[160], ps[160]
+    out = {}
+    for encoder, batches in BN_BATCHES.items():
+        calls = bn_calls(encoder)
+        ps = [params(shape[0]) for shape, _, _ in calls]
+        acts = [act for _, act, _ in calls]
+        eps = [e for _, _, e in calls]
+        acted = sum(act != "none" for act in acts)
+        counts = {"calls": len(calls), "relu": acts.count("relu"), "silu": acts.count("silu")}
+        out[encoder] = dict(counts)
+        if encoder == "densenet161_bts":
+            norm5 = calls[160], ps[160]
+        # the launches of one pass over all the calls: K7 one a call; the
+        # chain eight and its F.relu or F.silu; F.batch_norm two (cuDNN)
+        # and its F.relu or F.silu
+        expect = {"kernel": len(calls), "plain": 8 * len(calls) + acted, "library": 2 * len(calls) + acted}
+        for b in batches:
+            xs = [(torch.randn((b,) + shape, generator=g, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+                  for shape, _, _ in calls]
+            args = list(zip(xs, ps, acts, eps))
+            with torch.inference_mode():
+                differ = sum(int((routes["launch"](*arg) != routes["plain"](*arg)).sum()) for arg in args)
+                check(differ == 0, f"K7, {encoder} at b{b}: {differ} elements differ from the chain")
+                elements = sum(x.numel() for x in xs)
+                rec = {"phase": "bn", "card": card, "encoder": encoder, "batch": b,
+                       "per": "all BatchNorm calls of one forward", **counts,
+                       "elements_per_image": elements // b, "elements_differing": differ,
+                       **bound(4 * elements, 4 * elements)}
+                for name in ("kernel", "plain", "library"):
+                    got = kernels_ms(lambda route=routes[name]: [route(*arg) for arg in args], expect[name])
+                    rec[f"{name}_ms"], rec[f"{name}_launches"] = got["ms"], got["launches"]
+                    rec[f"{name}_windows_dropped"] = got["windows_dropped"]
+                rec["share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+                by_plane = {}
+                for arg in args:
+                    by_plane.setdefault(arg[0].shape[2] * arg[0].shape[3], []).append(arg)
+                rec["by_plane"] = {}
+                for hw, group in sorted(by_plane.items(), reverse=True):
+                    n = sum(arg[0].numel() for arg in group)
+                    got = kernels_ms(lambda group=group: [routes["kernel"](*arg) for arg in group], len(group))
+                    row = {"calls": len(group), "elements": n, **bound(4 * n, 4 * n), "kernel_ms": got["ms"],
+                           "windows_dropped": got["windows_dropped"]}
+                    row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+                    rec["by_plane"][hw] = row
+            emit(rec)
+            out[encoder][f"b{b}"] = rec
+            del xs, args
+            torch.cuda.empty_cache()
+    # the host's cost of one call, on DenseNet-161's norm5 input (b1, 2208
+    # x 11 x 38): the module, the op, the launch alone (the op less its
+    # dispatch), the chain with its ReLU and F.batch_norm with F.relu
+    (shape, _, eps), p = norm5
     x = torch.randn((1,) + shape, generator=g, device="cuda").to(torch.bfloat16)
-    bn = BatchNorm(shape[0]).to("cuda").eval()
+    bn = BatchNorm(shape[0], eps=eps).to("cuda").eval()
     with torch.inference_mode():
-        host = {"module_us": host_us_per_call(lambda: bn(x, relu=True)),
-                **{f"{name}_us": host_us_per_call(lambda route=route: route(x, p, True))
+        host = {"module_us": host_us_per_call(lambda: bn(x, act="relu")),
+                **{f"{name}_us": host_us_per_call(lambda route=route: route(x, p, "relu", eps))
                    for name, route in routes.items()}}
     out["host_per_call"] = host
     emit({"phase": "bn_host", "card": card, "shape": [1, *shape], **host})
@@ -2422,6 +2451,70 @@ def phase_encoders(card: str) -> int:
     return lpg_fused.launches
 
 
+def phase_serve_b5(card: str) -> dict:
+    """EfficientNet-B5 BTS serving at the b16 stream's shape: create_model +
+    bts_test.predict, bts_size 512, 352x1216, b16, bf16, seeded weights.
+    Every count set to 0 just before the run: 130 K7 (76 with SiLU) and 3 K1
+    launches per forward; outputs finite, depth in (0, max_depth]; equal,
+    bit for bit, to the same forward with every BatchNorm on its plain
+    version (no K7 launch); the median ms of the timed forwards, images/s
+    and the peak memory.  Returns K1's launches of the path."""
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models.layers import BatchNorm
+    from bts_tpu_torch.ops import bn_cuda
+    from bts_tpu_torch.ops.lpg_cuda import lpg_fused
+
+    b, name = B5_SERVE_BATCH, "efficientnet_b5_bts"
+    cfg = Config(mode="test", encoder=name, bts_size=512, max_depth=MAX_DEPTH, dataset="kitti",
+                 input_height=H, input_width=W, compute_dtype="bfloat16", seed=0)
+    model = create_model(cfg, "cuda")
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.integers(0, 256, (b, H, W, 3), dtype=np.uint8), "focal": np.full(b, FOCAL, np.float32)}
+    forwards = 3 + B5_SERVE_FORWARDS  # the checked one, 2 warm-up, the timed ones
+    times = []
+    lpg_fused.launches = 0
+    with k7_counted("serve_b5") as k7:
+        outs = _forward(cfg, model, batch)
+        for i in range(forwards - 1):
+            if i == 2:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _forward(cfg, model, batch)
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+    check(k7.calls == BTS_BNS[name] * forwards, f"{name}: {k7.calls} BatchNorm calls took K7 in {forwards} forwards")
+    check(lpg_fused.launches == 3 * forwards, f"{name}: {lpg_fused.launches} K1 launches in {forwards} forwards")
+    rec = {"phase": "serve_b5", "encoder": name, "card": card, "batch": b, "compute_dtype": "bfloat16",
+           "k7_launches_per_forward": k7.launches / forwards, "k1_launches_per_forward": lpg_fused.launches / forwards,
+           "shapes": [list(o.shape) for o in outs]}
+    check(all(tuple(o.shape) == (b, 1, H, W) for o in outs), f"{name}: shapes {rec['shapes']}")
+    check(all(bool(torch.isfinite(o).all()) for o in outs[3:]), f"{name}: non-finite depth")
+    depth = outs[4] / (FOCAL / 715.0873)  # before the focal scaling
+    rec["final_depth_min_max"] = [depth.min().item(), depth.max().item()]
+    check(0 < rec["final_depth_min_max"][0] and rec["final_depth_min_max"][1] <= MAX_DEPTH,
+          f"{name}: depth range {rec['final_depth_min_max']}")
+    rec["ms_per_forward"] = {"median": statistics.median(times), "min": min(times), "max": max(times),
+                             "n": len(times)}
+    rec["images_per_s"] = b * 1e3 / rec["ms_per_forward"]["median"]
+    rec["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # the same forward with every BatchNorm on its plain version
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.forward = lambda x, act="none", m=m: bn_cuda.bn_act_plain(
+                x, m.running_mean, m.running_var, m.weight, m.bias, m.eps, act)
+    before = bn_cuda.bn_act.launches
+    plain = _forward(cfg, model, batch)
+    check(bn_cuda.bn_act.launches == before, f"{name}: the plain forward launched K7")
+    rec["outputs_equal_to_plain"] = [bool(torch.equal(o, q)) for o, q in zip(outs, plain)]
+    check(all(rec["outputs_equal_to_plain"]), f"{name}: K7's forward differs from the plain one "
+                                              f"{rec['outputs_equal_to_plain']}")
+    emit(rec)
+    del model, outs, plain
+    torch.cuda.empty_cache()
+    return lpg_fused.launches
+
+
 def nyu_config(**kw):
     """Config 3 (scripts/bench_suite.py:46-71, arguments/arguments_train_nyu.txt)."""
     from bts_tpu_torch.config import Config
@@ -3282,13 +3375,20 @@ def phase_input(card: str, train_rec: dict) -> dict:
 
 
 def k7_numbers(per_bn: dict) -> dict:
-    """K7's row of the result: the b1 forward's BatchNorms (phase_bn, which
-    checked every element equal to the chain's)."""
-    b1 = per_bn["b1"]
-    return {"max_abs_err": 0.0, "ms": b1["kernel_ms"],
-            "plain_ms": b1["plain_ms"], "library_ms": b1["library_ms"], "bound_ms": b1["bound_ms"],
-            "bound_by": b1["bound_by"], "share_of_bound": b1["share_of_bound"],
-            "per": "352x1216 b1 serving forward: its 175 BatchNorms, bf16 (library: F.batch_norm + F.relu)"}
+    """K7's row of the result: DenseNet-161's b1 forward's BatchNorms, and
+    under "efficientnet_b5_b16" EfficientNet-B5's b16 forward's (phase_bn,
+    which checked every element equal to the chain's)."""
+    def row(rec):
+        return {"ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"], "library_ms": rec["library_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "share_of_bound": rec["share_of_bound"]}
+
+    b5 = per_bn["efficientnet_b5_bts"]["b16"]
+    return {"max_abs_err": 0.0, **row(per_bn["densenet161_bts"]["b1"]),
+            "per": "352x1216 b1 serving forward: its 175 BatchNorms, bf16 (library: F.batch_norm + F.relu)",
+            "efficientnet_b5_b16": dict(row(b5), launches=b5["kernel_launches"],
+                                        per=f"352x1216 b16 EfficientNet-B5 serving forward: its {b5['calls']} "
+                                            f"BatchNorms, {b5['silu']} with SiLU, bf16 "
+                                            f"(library: F.batch_norm + F.silu or F.relu)")}
 
 
 def main() -> int:
@@ -3338,18 +3438,19 @@ def main() -> int:
     spatial_launches = phase_spatial(card, train_rec)
     phase_kernel_nyu(card)
     encoder_launches = phase_encoders(card)
+    b5_launches = phase_serve_b5(card)
     nyu_launches = phase_train_nyu(card)
     eval_launches = phase_eval(card, kitti_model)
     del kitti_model
     serving = phase_serving(card)
     input_launches = phase_input(card, train_rec)
-    paths = ("serve", "serve_tail", "train", "train_ddp", "spatial", "op", "encoders", "train_nyu", "eval",
-             "export", "serve_http", "sequence", "input")
+    paths = ("serve", "serve_tail", "train", "train_ddp", "spatial", "op", "encoders", "serve_b5", "train_nyu",
+             "eval", "export", "serve_http", "sequence", "input")
     by_path = {name: dict.fromkeys(paths, 0) for name, _, _, _ in KERNELS}
     by_path["bn_act"].update(K7_PATHS)
     by_path["lpg_fused"].update(serve=serve_launches, serve_tail=tail_launches["lpg_fused"],
                                 train=train_launches["lpg_fused"], train_ddp=ddp_launches["lpg_fused"],
-                                encoders=encoder_launches,
+                                encoders=encoder_launches, serve_b5=b5_launches,
                                 train_nyu=nyu_launches["lpg_fused"], eval=eval_launches["lpg_fused"])
     by_path["lpg_fused"]["spatial"] = spatial_launches["lpg_fused"]
     by_path["lpg_fused_bwd"].update(train=train_launches["lpg_fused_bwd"],
@@ -3386,8 +3487,8 @@ def main() -> int:
                        "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
                        "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
-                       "per": t["per"], **{key: t[key] for key in ("kernel_only_ms", "share_of_bound", "floor_ms")
-                                           if key in t}})
+                       "per": t["per"], **{key: t[key] for key in ("kernel_only_ms", "share_of_bound", "floor_ms",
+                                                              "efficientnet_b5_b16") if key in t}})
     emit({"kernels": result})
     print(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""K7, the eval-mode BatchNorm (+ReLU) kernel (``bts_tpu_torch/ops/bn_cuda.py``,
+"""K7, the eval-mode BatchNorm (+ReLU or SiLU) kernel (``bts_tpu_torch/ops/bn_cuda.py``,
 ``csrc/batchnorm.cu``), on the CPU: its plain version is ``BatchNorm``'s
 arithmetic, its op's CPU and fake implementations agree with the plain
 version, the launch refuses what the kernel does not take, and
@@ -60,19 +60,20 @@ class _Record(TorchDispatchMode):
 def test_plain_is_the_modules_arithmetic(dtype, relu):
     """The module (eval, CPU), the plain version and the op's CPU
     implementation equal, bit for bit, BatchNorm's f32 chain rounded once to
-    the dtype; relu=True equals F.relu of the unfused result."""
+    the dtype; act="relu" equals F.relu of the unfused result."""
     bn, x = _bn(), _x(dtype)
+    act = "relu" if relu else "none"
     shape = (1, -1, 1, 1)
     mul = torch.rsqrt(bn.running_var + layers.BN_EPS) * bn.weight
     chain = ((x.float() - bn.running_mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)).to(dtype)
     ref = F.relu(chain) if relu else chain
     with torch.no_grad():
-        outs = [bn(x, relu=relu), bn_cuda.bn_act_plain(x, *_params(bn), layers.BN_EPS, relu),
-                bn_cuda.bn_act(x, *_params(bn), layers.BN_EPS, relu)]
-        assert torch.equal(bn(x, relu=True), F.relu(bn(x)))
+        outs = [bn(x, act=act), bn_cuda.bn_act_plain(x, *_params(bn), layers.BN_EPS, act),
+                bn_cuda.bn_act(x, *_params(bn), layers.BN_EPS, act)]
+        assert torch.equal(bn(x, act="relu"), F.relu(bn(x)))
     for out in outs:
         assert out.dtype == dtype and torch.equal(out, ref)
-    assert torch.equal(bn(x, relu=relu), ref)  # under autograd too
+    assert torch.equal(bn(x, act=act), ref)  # under autograd too
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
@@ -83,11 +84,11 @@ def test_fake_matches_plain(dtype, layout):
     bn, x = _bn(), _x(dtype)
     if layout == "channels_last":
         x = x.contiguous(memory_format=torch.channels_last)
-    ref = bn_cuda.bn_act_plain(x, *_params(bn), layers.BN_EPS, True)
+    ref = bn_cuda.bn_act_plain(x, *_params(bn), layers.BN_EPS, "relu")
     mode = FakeTensorMode()
     fx, fparams = mode.from_tensor(x), [mode.from_tensor(p.detach()) for p in _params(bn)]
     with mode:
-        out = bn_cuda.bn_act(fx, *fparams, layers.BN_EPS, True)
+        out = bn_cuda.bn_act(fx, *fparams, layers.BN_EPS, "relu")
     assert (out.shape, out.dtype, out.stride()) == (ref.shape, ref.dtype, ref.stride())
 
 
@@ -115,7 +116,7 @@ def test_batchnorm_takes_the_op_by_its_rule(case, expect):
         if case == "band":
             x = x.narrow(2, 2, 3)
         with torch.set_grad_enabled(case in ("train", "eval_grad")), _Record() as rec:
-            y = bn(x, relu=True)
+            y = bn(x, act="relu")
     assert y.shape == x.shape and y.dtype == dtype
     if expect:
         assert rec.ops == [OP]
@@ -123,7 +124,7 @@ def test_batchnorm_takes_the_op_by_its_rule(case, expect):
         assert OP not in rec.ops and "aten.rsqrt.default" in rec.ops and "aten.relu_.default" in rec.ops
 
 
-@pytest.mark.parametrize("case", ["float16", "not_contiguous", "parameter_shape", "too_large"])
+@pytest.mark.parametrize("case", ["float16", "not_contiguous", "parameter_shape", "too_large", "activation"])
 def test_launch_refuses_what_the_kernel_does_not_take(case):
     bn, x = _bn(), _x(torch.bfloat16)
     params = list(_params(bn))
@@ -137,4 +138,4 @@ def test_launch_refuses_what_the_kernel_does_not_take(case):
     else:
         params[1] = params[1][:-1]
     with pytest.raises(TypeError if case == "float16" else ValueError):
-        bn_cuda._k7_cuda(x, *params, layers.BN_EPS, False)
+        bn_cuda._k7_cuda(x, *params, layers.BN_EPS, "gelu" if case == "activation" else "none")

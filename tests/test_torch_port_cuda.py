@@ -22,7 +22,8 @@ another order than the plain version, and the gradient grows as 1/den^2).
 K3 and K4 take the rules of K1 and K2.  K5 equals K1 interleaved, bit for
 bit.  K6 holds tests/test_torch_port_tail.py's rule against its plain
 version: mean abs error <= 2e-5, max <= 5e-2, at most 1% of pixels off by
-more than 1e-4.  K7 equals the ATen chain it replaces, bit for bit.
+more than 1e-4.  K7 equals its plain version bit for bit: the ATen chain it
+replaces, and with SiLU, F.silu of the f32 normalisation, rounded once.
 """
 
 import numpy as np
@@ -666,12 +667,13 @@ def test_bn_act_kernel_equals_the_chain(card, shape, dtype, relu):
     from bts_tpu_torch.models.layers import BN_EPS
     from bts_tpu_torch.ops import bn_cuda
 
+    act = "relu" if relu else "none"
     x, params = _bn_case(card, shape, dtype)
     before = bn_cuda.bn_act.launches
-    out = bn_cuda._k7_cuda(x, *params, BN_EPS, relu)
+    out = bn_cuda._k7_cuda(x, *params, BN_EPS, act)
     torch.cuda.synchronize()
     assert bn_cuda.bn_act.launches == before + 1
-    ref = bn_cuda.bn_act_plain(x, *params, BN_EPS, relu)
+    ref = bn_cuda.bn_act_plain(x, *params, BN_EPS, act)
     assert out.dtype == dtype and out.shape == x.shape and out.is_contiguous()
     assert torch.equal(out, ref), f"{(out != ref).sum().item()} of {out.numel()} elements differ"
 
@@ -686,7 +688,8 @@ def test_bn_act_kernel_reads_a_misaligned_x(card, dtype):
     x, params = _bn_case(card, (2, 64, 22, 76), dtype, seed=1)
     shifted = torch.empty(x.numel() + 1, dtype=dtype, device=card)[1:].view(x.shape).copy_(x)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
-    assert torch.equal(bn_cuda._k7_cuda(shifted, *params, BN_EPS, True), bn_cuda._k7_cuda(x, *params, BN_EPS, True))
+    assert torch.equal(bn_cuda._k7_cuda(shifted, *params, BN_EPS, "relu"),
+                       bn_cuda._k7_cuda(x, *params, BN_EPS, "relu"))
 
 
 BN_TRACE_CHECK = """
@@ -699,7 +702,7 @@ g = torch.Generator(device="cuda").manual_seed(2)
 x = torch.randn(1, 352, 88, 304, generator=g, device="cuda").to(torch.bfloat16)
 bn = BatchNorm(352).to("cuda").eval()
 with torch.inference_mode():
-    got = launched_kernels(lambda: bn(x, relu=True), ("bts_tpu_torch::bn_act",))
+    got = launched_kernels(lambda: bn(x, act="relu"), ("bts_tpu_torch::bn_act",))
 (calls,) = got["by_op"].values()
 assert len(calls) == 1 and len(calls[0]) == 1 and "bn_act_kernel" in calls[0][0], got
 assert got["kernels"] == calls[0], got
@@ -724,7 +727,7 @@ def test_bn_act_module_launches_k7_under_its_op(card):
     from bts_tpu_torch.ops import bn_cuda
 
     x, params = _bn_case(card, (1, 352, 88, 304), torch.bfloat16, seed=2)
-    assert torch.equal(bn_cuda.bn_act(x, *params, BN_EPS, True), bn_cuda._k7_cuda(x, *params, BN_EPS, True))
+    assert torch.equal(bn_cuda.bn_act(x, *params, BN_EPS, "relu"), bn_cuda._k7_cuda(x, *params, BN_EPS, "relu"))
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", BN_TRACE_CHECK], cwd=root, capture_output=True, text=True,
                           timeout=300)
@@ -754,8 +757,8 @@ def test_bn_act_engages_at_every_batchnorm_of_a_serving_forward(card):
     with torch.no_grad():  # the same forward with every BatchNorm on today's chain
         for m in model.modules():
             if isinstance(m, BatchNorm):
-                m.forward = lambda x, relu=False, m=m: bn_cuda.bn_act_plain(
-                    x, m.running_mean, m.running_var, m.weight, m.bias, BN_EPS, relu)
+                m.forward = lambda x, act="none", m=m: bn_cuda.bn_act_plain(
+                    x, m.running_mean, m.running_var, m.weight, m.bias, BN_EPS, act)
         today = model(image, focal)
         for m in model.modules():
             if isinstance(m, BatchNorm):
@@ -768,3 +771,101 @@ def test_bn_act_engages_at_every_batchnorm_of_a_serving_forward(card):
     sum(o.float().mean() for o in model(image, focal)).backward()
     torch.cuda.synchronize()
     assert bn_cuda.bn_act.launches == before
+
+
+def _bn_calls(encoder, h=352, w=1216):
+    """(per-image shape, activation, eps) of each BatchNorm call of a BTS
+    serving forward of ``encoder`` at h x w, in order, recorded by forward
+    pre-hooks on the meta device (nothing is computed)."""
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models.layers import BatchNorm
+
+    with torch.device("meta"):
+        model = create_model(Config(encoder=encoder, bts_size=512, compute_dtype="bfloat16"), "meta")
+    calls = []
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.register_forward_pre_hook(lambda m, args, kw: calls.append(
+                (tuple(args[0].shape[1:]), kw.get("act", "none"), m.eps)), with_kwargs=True)
+    with torch.no_grad():
+        model(torch.empty(1, 3, h, w, device="meta"), torch.empty(1, device="meta"))
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 16])
+def test_bn_act_silu_equals_plain_on_efficientnet_b5_calls(card, b, dtype):
+    """K7 at each of the 130 BatchNorm calls of an EfficientNet-B5 BTS
+    serving forward at b x 352 x 1216 (76 with SiLU, 9 with ReLU, 45
+    without; eps 1e-3 in the encoder) equals its plain version bit for bit:
+    SiLU of the f32 normalisation, rounded once."""
+    from bts_tpu_torch.ops import bn_cuda
+
+    calls = _bn_calls("efficientnet_b5_bts")
+    acts = [act for _, act, _ in calls]
+    assert (len(calls), acts.count("silu"), acts.count("relu")) == (130, 76, 9)
+    for i, (shape, act, eps) in enumerate(calls):
+        x, params = _bn_case(card, (b,) + shape, dtype, seed=i)
+        out, ref = bn_cuda._k7_cuda(x, *params, eps, act), bn_cuda.bn_act_plain(x, *params, eps, act)
+        assert torch.equal(out, ref), f"call {i} {shape} {act}: {(out != ref).sum().item()} elements differ"
+        del x, out, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_act_silu_reads_a_misaligned_x(card, dtype):
+    """SiLU on the 1-element vectors of a view that is not 16-byte aligned,
+    with the same result as on an aligned copy and as the plain version."""
+    from bts_tpu_torch.ops import bn_cuda
+
+    x, params = _bn_case(card, (2, 240, 22, 76), dtype, seed=3)
+    shifted = torch.empty(x.numel() + 1, dtype=dtype, device=card)[1:].view(x.shape).copy_(x)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    out = bn_cuda._k7_cuda(shifted, *params, 1e-3, "silu")
+    assert torch.equal(out, bn_cuda._k7_cuda(x, *params, 1e-3, "silu"))
+    assert torch.equal(out, bn_cuda.bn_act_plain(x, *params, 1e-3, "silu"))
+
+
+def test_bn_act_relu_equals_plain_on_densenet161_calls(card):
+    """K7's ReLU path is unchanged by the SiLU epilogue: at each of the 175
+    BatchNorm calls of a DenseNet-161 BTS serving forward at 352 x 1216
+    (b1, bf16) it equals the chain bit for bit."""
+    from bts_tpu_torch.ops import bn_cuda
+
+    calls = _bn_calls("densenet161_bts")
+    assert len(calls) == 175 and {act for _, act, _ in calls} == {"relu", "none"}
+    for i, (shape, act, eps) in enumerate(calls):
+        x, params = _bn_case(card, (1,) + shape, torch.bfloat16, seed=i)
+        out, ref = bn_cuda._k7_cuda(x, *params, eps, act), bn_cuda.bn_act_plain(x, *params, eps, act)
+        assert torch.equal(out, ref), f"call {i} {shape} {act}: {(out != ref).sum().item()} elements differ"
+
+
+def test_efficientnet_b5_serving_forward_with_k7_equals_without(card):
+    """A b2 352 x 1216 bf16 serving forward of EfficientNet-B5 BTS through
+    ``predict`` launches K7 once per BatchNorm (130) and equals, bit for
+    bit, the same forward with every BatchNorm on its plain version."""
+    from bts_tpu_torch.cli.bts_test import predict
+    from bts_tpu_torch.config import Config
+    from bts_tpu_torch.models.bts import create_model
+    from bts_tpu_torch.models.layers import BatchNorm
+    from bts_tpu_torch.ops import bn_cuda
+
+    cfg = Config(mode="test", encoder="efficientnet_b5_bts", dataset="kitti", bts_size=512,
+                 compute_dtype="bfloat16", seed=1)
+    model = create_model(cfg, card)
+    g = torch.Generator().manual_seed(5)
+    batch = {"image": torch.randint(0, 256, (2, 352, 1216, 3), dtype=torch.uint8, generator=g),
+             "focal": torch.tensor([721.5377, 707.0493])}
+    before = bn_cuda.bn_act.launches
+    fused = next(predict(cfg, model, [batch], card))
+    torch.cuda.synchronize()
+    assert bn_cuda.bn_act.launches - before == 130
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.forward = lambda x, act="none", m=m: bn_cuda.bn_act_plain(
+                x, m.running_mean, m.running_var, m.weight, m.bias, m.eps, act)
+    before = bn_cuda.bn_act.launches
+    plain = next(predict(cfg, model, [batch], card))
+    assert bn_cuda.bn_act.launches == before
+    for a, b in zip(fused, plain):
+        assert torch.equal(a, b)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from bts_tpu.models.encoders import ENCODERS as J_ENCODERS
 from bts_tpu.models.encoders import build_encoder as j_build_encoder
 from bts_tpu.models.encoders import freeze_prefixes as j_freeze_prefixes
 from bts_tpu.models.encoders.mobilenetv2 import MobileNetV2 as JMobileNetV2
@@ -33,6 +34,9 @@ from test_torch_port_model import (  # noqa: F401
 )
 
 REDUCED = (1, 1, 1, 1)
+# the registry names both packages have (efficientnet_b5_bts is the port's
+# alone; tests/test_torch_port_efficientnet.py holds its keys and prefixes)
+SHARED = sorted(set(ENCODERS) & set(J_ENCODERS))
 FAMILIES = {
     # name -> (JAX module, port module, mapping), each built for a pad style
     "resnet": (lambda ps: JResNet(stage_sizes=REDUCED, pad_style=ps),
@@ -63,7 +67,7 @@ def test_encoder_taps_match_flax(family, pad_style):
         _assert_close_nhwc(t, r, rtol=2e-4, scale_tol=2e-4)
 
 
-@pytest.mark.parametrize("name", sorted(ENCODERS))
+@pytest.mark.parametrize("name", SHARED)
 def test_full_width_keys_and_shapes(name):
     """Each registry encoder at full width has exactly the torch keys of its
     mapping, each with the shape of its flax leaf (transposed), and the
@@ -84,7 +88,7 @@ def test_full_width_keys_and_shapes(name):
 
 
 @pytest.mark.parametrize("num", [1, 2])
-@pytest.mark.parametrize("name", sorted(ENCODERS))
+@pytest.mark.parametrize("name", SHARED)
 def test_freeze_prefixes_match_jax(name, num):
     """--fix_first_conv_block(s): the port's prefixes (torchvision names)
     freeze exactly the parameters that the JAX package's prefixes (flax
